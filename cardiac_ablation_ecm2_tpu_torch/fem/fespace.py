@@ -1,6 +1,7 @@
-"""H1 finite element space: global dof enumeration on a hex mesh (numpy copy
-of ``FESpace``, ``element_node_coords`` and ``essential_dofs`` from
-``cardiac_ablation_ecm2_tpu/fem/fespace.py``, tensor geometries only).
+"""H1 finite element space: global dof enumeration on a hex or tet mesh
+(numpy copy of ``FESpace``, ``element_node_coords`` and ``essential_dofs``
+from ``cardiac_ablation_ecm2_tpu/fem/fespace.py``, tensor and simplex
+geometries).
 
 Every local node of every element gets an integer entity key that is
 identical for coincident nodes of neighbouring elements; hash-uniquing the
@@ -12,10 +13,11 @@ gather map in one pass:
   global endpoint
 * face node    → ``(FACE, sorted_face_verts, a, b)``, (a, b) in the face's
   canonical frame: origin at the smallest global vertex, first axis toward
-  its smaller cyclic neighbour
+  its smaller cyclic neighbour (quads), or the barycentric indices at the
+  corners next to it (triangles)
 * interior node→ ``(CELL, element, i, j, k)``
 
-Local dof ordering is lexicographic (i fastest).
+Local dof ordering is lexicographic (i fastest), see ``fem/basis.py``.
 """
 
 from __future__ import annotations
@@ -27,7 +29,13 @@ from typing import Dict, Tuple
 import numpy as np
 
 from ..mesh.mesh import Mesh
-from .basis import DofToQuad, h1_nodes, lattice_multi_index, make_dof_to_quad
+from .basis import (
+    DofToQuad,
+    h1_nodes,
+    lattice_multi_index,
+    make_dof_to_quad,
+    simplex_basis_matrices,
+)
 from .geometry import DIMENSION, EDGES, FACES, NUM_VERTS, REF_VERTS, Geometry
 
 _VERT, _EDGE, _FACE, _CELL = 0, 1, 2, 3
@@ -70,9 +78,27 @@ def _quad_frame(verts: np.ndarray, p: int):
     return cr, eu, ev
 
 
+def _tri_frame(verts: np.ndarray):
+    """Corner of triangle faces ``verts`` (n, 3) holding the smallest global
+    id, and the direction (±1) toward its smaller cyclic neighbour."""
+    n = len(verts)
+    r = np.argmin(verts, axis=1)
+    nxt = verts[np.arange(n), (r + 1) % 3]
+    prv = verts[np.arange(n), (r - 1) % 3]
+    return r, np.where(nxt < prv, 1, -1)
+
+
+def _tri_face_code(r, d, b0, b1, b2):
+    """Canonical (a, b) of the triangle-face node with barycentric indices
+    (b0, b1, b2): the indices at the corners r+d and r−d."""
+    n = len(r)
+    bar = np.stack([np.full(n, b0), np.full(n, b1), np.full(n, b2)], axis=1)
+    return bar[np.arange(n), (r + d) % 3], bar[np.arange(n), (r - d) % 3]
+
+
 def _elem_node_keys(geom: Geometry, p: int, elem_verts: np.ndarray,
                     elem_ids: np.ndarray) -> np.ndarray:
-    """Entity keys for all local nodes of a batch of tensor elements:
+    """Entity keys for all local nodes of a batch of elements:
     (ne, nd, _KEYLEN) int64."""
     dim = DIMENSION[geom]
     nd = len(lattice_multi_index(geom, p))
@@ -108,8 +134,22 @@ def _elem_node_keys(geom: Geometry, p: int, elem_verts: np.ndarray,
 
     if dim == 3 and p >= 2:
         for fverts in FACES[geom]:
-            gf = elem_verts[:, list(fverts)]          # (ne, 4) global ids, cyclic
+            gf = elem_verts[:, list(fverts)]          # (ne, k) global ids, cyclic
             gsort = np.sort(gf, axis=1)
+            if len(fverts) == 3:
+                # triangle face: node = barycentric (b0, b1, b2), all ≥ 1
+                r, d = _tri_frame(gf)
+                Lf = latt_v[list(fverts)]
+                for b0 in range(1, p):
+                    for b1 in range(1, p - b0):
+                        b2 = p - b0 - b1
+                        n = lookup[tuple((Lf[0] * b0 + Lf[1] * b1
+                                          + Lf[2] * b2) // p)]
+                        a, b = _tri_face_code(r, d, b0, b1, b2)
+                        keys[n, :, 0:3] = gsort
+                        keys[n, :, 4] = _meta_arr(_FACE, a, b)
+                        done[n] = True
+                continue
             cr, eu, ev = _quad_frame(gf, p)
             # face-local (u,v) lattice: u along fverts[0]→fverts[1],
             # v along fverts[0]→fverts[3]
@@ -137,14 +177,22 @@ def _elem_node_keys(geom: Geometry, p: int, elem_verts: np.ndarray,
 
 def _bdr_cell_to_face_keys(bgeom: Geometry, p: int, bverts: np.ndarray,
                            bkeys: np.ndarray) -> np.ndarray:
-    """Rewrite the CELL keys of boundary quads' interior nodes as the
-    canonical FACE keys the adjacent volume element gives them."""
-    if p < 2 or bgeom != Geometry.SQUARE:
+    """Rewrite the CELL keys of boundary quads' or triangles' interior nodes
+    as the canonical FACE keys the adjacent volume element gives them."""
+    if p < 2 or DIMENSION[bgeom] != 2:
         return bkeys
     mi = lattice_multi_index(bgeom, p)
     gsort = np.sort(bverts, axis=1)
-    cr, eu, ev = _quad_frame(bverts, p)
     cell_nodes = np.nonzero((bkeys[0, :, 4] >> 48) == _CELL)[0]
+    if bgeom == Geometry.TRIANGLE:
+        r, d = _tri_frame(bverts)
+        for n in cell_nodes:
+            i, j = mi[n]
+            a, b = _tri_face_code(r, d, p - i - j, i, j)
+            bkeys[:, n, 0:3] = gsort
+            bkeys[:, n, 4] = _meta_arr(_FACE, a, b)
+        return bkeys
+    cr, eu, ev = _quad_frame(bverts, p)
     for n in cell_nodes:
         rel = mi[n] - cr
         a = (rel * eu).sum(axis=1)
@@ -156,7 +204,7 @@ def _bdr_cell_to_face_keys(bgeom: Geometry, p: int, bverts: np.ndarray,
 
 @dataclasses.dataclass(eq=False)
 class FESpace:
-    """Scalar H1 nodal space of order p on a single-geometry tensor mesh."""
+    """Scalar H1 nodal space of order p on a single-geometry mesh."""
 
     mesh: Mesh
     order: int
@@ -220,9 +268,12 @@ class FESpace:
 
 def element_node_coords(mesh: Mesh, p: int) -> np.ndarray:
     """Physical coordinates of the order-p lattice nodes of every element,
-    (ne, nd, sdim), through the multilinear vertex map."""
+    (ne, nd, sdim), through the P1 (simplex) or multilinear Q1 vertex map."""
     ref = h1_nodes(mesh.geom, p)                      # (nd, dim)
-    B = _q1_eval_matrix(mesh.geom, ref)               # (nd, nv)
+    if mesh.geom in (Geometry.TRIANGLE, Geometry.TETRAHEDRON):
+        B, _ = simplex_basis_matrices(mesh.geom, 1, ref)   # (nd, nv)
+    else:
+        B = _q1_eval_matrix(mesh.geom, ref)
     return _batched_eval(B, mesh.vertices[mesh.elements])
 
 

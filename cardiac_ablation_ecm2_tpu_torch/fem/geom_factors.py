@@ -3,7 +3,8 @@
 
 The geometry E-vector (element node coordinates) goes through
 ``quadinterp.eval_grad``; determinant and adjugate are closed-form 3×3
-formulas.  Jacobian convention: ``J[e, q, s, d] = ∂x_s/∂ξ_d``.
+formulas.  Jacobian convention: ``J[e, q, s, d] = ∂x_s/∂ξ_d``.  The same
+code serves tensor (hex) and dense (tet) bases.
 """
 
 from __future__ import annotations
@@ -61,18 +62,20 @@ def adjugate(J: torch.Tensor) -> torch.Tensor:
 
 def affine_element_jacobians(mesh) -> Optional[np.ndarray]:
     """Constant per-element Jacobians for meshes that are affine by
-    construction.  In the JAX package only straight-sided simplices are;
-    the port's meshes are tensor meshes, so this returns None and the
+    construction.  In the JAX package only straight-sided simplices are,
+    and the port runs simplices only through the assembled-ELL apply,
+    which needs no affine factors; so this returns None and, on hexes, the
     numerical separability check (``ops/lanemajor.separable_collapse``)
-    decides, as it does for hexes in the JAX package."""
+    decides, as it does in the JAX package."""
     return None
 
 
 def compute_geometric_factors(node_coords, d2q: DofToQuad, dtype=None,
-                              device="cpu") -> GeometricFactors:
-    """GeometricFactors from element node coordinates (ne, nd, sdim)."""
+                              device=None) -> GeometricFactors:
+    """GeometricFactors from element node coordinates (ne, nd, sdim), with
+    the tensor or the dense basis of ``d2q``; ``device=None`` is the card."""
     db = device_basis(d2q, dtype, device)
-    X = torch.as_tensor(node_coords, dtype=real_t(dtype), device=device)
+    X = torch.as_tensor(node_coords, dtype=real_t(dtype), device=db.W.device)
     xq = eval_values(db, X)                      # (ne, nq, sdim)
     J = eval_grad(db, X).transpose(2, 3)         # (ne, nq, sdim, dim)
     return GeometricFactors(x=xq, jac=J, det=determinant(J), w=db.W)

@@ -9,7 +9,8 @@ Both directions run on one op, ``ops/block_gather.gather_sum``:
 * E→L is a destination-sorted gather-sum over multiplicity planes: plane j
   holds, for every dof, its j-th E-slot in ascending slot order (a stable
   counting sort by destination dof); a dof with fewer than j+1 slots points
-  at the sentinel slot, which reads zero.  Hexes have multiplicity ≤ 8.
+  at the sentinel slot, which reads zero.  Hexes have multiplicity ≤ 8,
+  order-2 tets of the cardiac mesh up to 46.
   The fixed order and the absence of atomics make E→L deterministic.
 """
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.block_gather import gather_sum
+from ..utils.config import resolve_device
 from ..utils.native import counting_argsort
 
 
@@ -38,9 +40,11 @@ def scatter_planes(flat: np.ndarray, ndof: int) -> np.ndarray:
 
 
 class ElementRestriction:
-    """Gather/scatter planes of one (ne, nd) gather map, on one device."""
+    """Gather/scatter planes of one (ne, nd) gather map, on one device
+    (``None``: the card)."""
 
-    def __init__(self, gather_map: np.ndarray, ndof: int, device="cpu"):
+    def __init__(self, gather_map: np.ndarray, ndof: int, device=None):
+        device = resolve_device(device)
         gm = np.asarray(gather_map)
         self.ne, self.nd = gm.shape
         self.ndof = int(ndof)

@@ -1,11 +1,17 @@
-"""Cardiac-like hex benchmark mesh (numpy copy of ``make_cardiac_hex_mesh``
-from ``cardiac_ablation_ecm2_tpu/mesh/cardiac.py``).
+"""Cardiac-like benchmark meshes (numpy copy of ``make_cardiac_tet_mesh``
+and ``make_cardiac_hex_mesh`` from ``cardiac_ablation_ecm2_tpu/mesh/cardiac.py``).
 
 A tissue block with a hemispherical electrode notch carved at the top
-centre: a hex lattice with boundary-preserving interior jitter and a smooth
-non-affine warp, so every element has its own Jacobian.  Elements are
-ordered along a Morton curve of their centroids.  Boundary attributes:
-1 = outer tissue surface, 2 = electrode surface, 3 = ground pad (z=0).
+centre, from jittered and smoothly warped lattice points, so every element
+has its own Jacobian:
+
+* tets: 3D Delaunay of the points (unstructured connectivity), slivers
+  dropped and every tet oriented positive;
+* hexes: the lattice itself, with boundary-preserving jitter and warp.
+
+Elements are ordered along a Morton curve of their centroids.  Boundary
+attributes: 1 = outer tissue surface, 2 = electrode surface, 3 = ground pad
+(z=0).
 
 Same seed, same arithmetic as the JAX package: the two makers return equal
 arrays.
@@ -16,6 +22,9 @@ from __future__ import annotations
 import numpy as np
 
 from .mesh import Geometry, Mesh, make_cartesian_3d
+
+#: local faces of tet (v0,v1,v2,v3) with outward normals (positive volume)
+_TET_FACES = ((1, 2, 3), (0, 3, 2), (0, 1, 3), (0, 2, 1))
 
 
 def _warp(pts: np.ndarray, L: np.ndarray) -> np.ndarray:
@@ -65,6 +74,82 @@ def _morton_argsort(cent: np.ndarray, L: np.ndarray) -> np.ndarray:
         | _part1by2(q[:, 0])
     )
     return np.argsort(code, kind="stable")
+
+
+def make_cardiac_tet_mesh(
+    n: int = 24,
+    lengths=(40.0, 40.0, 20.0),
+    electrode_radius: float = 4.0,
+    jitter: float = 0.28,
+    seed: int = 0,
+) -> Mesh:
+    """Unstructured tet mesh of the block with the electrode notch; ``n``
+    lattice cells along x (n=66 → 956,820 tets at the benchmark's lengths
+    (0.04, 0.04, 0.02))."""
+    from scipy.spatial import Delaunay
+
+    L = np.asarray(lengths, dtype=np.float64)
+    rng = np.random.default_rng(seed)
+    nz = max(2, int(round(n * L[2] / L[0])))
+    ns = np.array([n, max(2, int(round(n * L[1] / L[0]))), nz])
+    h = L / ns
+    axes = [np.linspace(0.0, L[c], ns[c] + 1) for c in range(3)]
+    X, Y, Z = np.meshgrid(*axes, indexing="ij")
+    pts = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
+    pts = _jitter(pts, h, L, jitter, rng)
+    pts = _warp(pts, L)
+
+    tets = Delaunay(pts).simplices.astype(np.int64)
+    v = pts[tets]
+    vol6 = np.einsum(
+        "ij,ij->i",
+        np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]),
+        v[:, 3] - v[:, 0],
+    )
+    # orient positive, drop Delaunay slivers (coplanar lattice degeneracies)
+    neg = vol6 < 0
+    tets[neg] = tets[neg][:, [0, 2, 1, 3]]
+    keep = np.abs(vol6) > 1e-6 * float(h.min()) ** 3
+    tets = tets[keep]
+
+    ctr = _electrode_center(L)
+    cent = pts[tets].mean(axis=1)
+    outside = np.linalg.norm(cent - ctr, axis=1) > electrode_radius
+    tets, cent = tets[outside], cent[outside]
+    tets = tets[_morton_argsort(cent, L)]
+    return _finish_tet_mesh(pts, tets, L, electrode_radius)
+
+
+def _finish_tet_mesh(pts, tets, L, electrode_radius) -> Mesh:
+    """Boundary triangles (faces seen once), unused vertices dropped,
+    boundary attributes by position."""
+    ctr = _electrode_center(L)
+    faces = np.concatenate([tets[:, list(f)] for f in _TET_FACES], axis=0)
+    key = np.sort(faces, axis=1)
+    _u, inv, cnt = np.unique(key, axis=0, return_inverse=True,
+                             return_counts=True)
+    btris = faces[cnt[inv] == 1]
+
+    used = np.zeros(len(pts), dtype=bool)
+    used[tets.ravel()] = True
+    remap = -np.ones(len(pts), dtype=np.int64)
+    remap[used] = np.arange(int(used.sum()))
+    pts = pts[used]
+    tets = remap[tets]
+    btris = remap[btris]
+
+    fc = pts[btris].mean(axis=1)
+    battr = np.ones(len(btris), dtype=np.int64)
+    battr[np.linalg.norm(fc - ctr, axis=1) <= 1.35 * electrode_radius] = 2
+    battr[fc[:, 2] < 1e-9] = 3
+    return Mesh(
+        geom=Geometry.TETRAHEDRON,
+        vertices=pts,
+        elements=tets,
+        attributes=np.ones(len(tets), dtype=np.int64),
+        boundary=btris,
+        bdr_attributes=battr,
+    )
 
 
 def make_cardiac_hex_mesh(

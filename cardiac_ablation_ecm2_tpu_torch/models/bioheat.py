@@ -9,17 +9,28 @@ essential (boundary) temperatures.  ``implicit_solve`` solves
 
 Apply paths, chosen at setup as in the JAX package:
 
-* lane-major (``transposed_apply``, default): L→E into (nd, ne), one fused
-  stacked matmul apply per quadrature point (``ops/lanemajor.py``), E→L;
+* assembled ELL (``assembled_apply="ell"``, the simplex path): M_ρc and
+  A = K + M_ω are assembled to CSR (``ops/bilinearform.py``) and packed as
+  one sliced-ELL pair (``ops/ell.py``); the stage operator and the residual
+  are one weighted SpMV each.  The right-hand side and the Jacobi diagonals
+  still come from the partial-assembly setup;
+* lane-major (``transposed_apply``, default on hexes): L→E into (nd, ne),
+  one fused stacked matmul apply per quadrature point
+  (``ops/lanemajor.py``), E→L;
 * affine: when every qdata array separates as W ⊗ d (straight-sided
   elements, constant coefficients) the apply runs on reference matrices;
 * element-major sum-factorized (``ops/mass.py``, ``ops/diffusion.py``):
   the residual (K + M_ω)T on the non-affine path, and the stage operator
   when ``transposed_apply`` is off.
+
+Tets run only through the assembled ELL: their partial-assembly applies
+(lane-major simplex, affine factors) are not ported, and a tet operator
+without ``assembled_apply="ell"`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -32,7 +43,9 @@ from ..fem.geom_factors import compute_geometric_factors
 from ..fem.quadinterp import eval_values_t
 from ..linalg.solvers import cg, default_dot
 from ..ops import diffusion, lanemajor, mass
-from ..utils.config import config, real_t
+from ..ops.bilinearform import BilinearForm
+from ..ops.ell import MultiELLPair
+from ..utils.config import config, real_t, resolve_device
 
 
 class BioheatOperator:
@@ -44,13 +57,20 @@ class BioheatOperator:
     quadrature-point coordinates, written with torch operations).
 
     ``theta_form`` solves for θ = T − T_a (boundary temperature T_a), which
-    keeps float32 precision on the rise.  ``fused_setup`` builds the
+    keeps float32 precision on the rise; on the ELL path its right-hand
+    side is (Q_met, v) alone, where the JAX package subtracts A(T_a·1)
+    through the float32 apply (equal in exact arithmetic, K·1 = 0).
+    ``fused_setup`` builds the
     diffusion qdata in packed form elementwise (``diffusion.setup_packed``)
     instead of packing the full matrices.  ``dot_mode`` "auto" takes plain
     dots in the working dtype when ``rel_tol`` ≥ 1e-6 and float64-accumulated
     ones otherwise.  ``elem_mask`` (ne,) zeroes inactive elements;
     ``ess_dofs`` adds explicit essential dofs.  Each solve appends its CG
-    iteration count to ``cg_iterations``.
+    iteration count to ``cg_iterations``.  ``assembled_apply`` "ell"
+    applies the stage operator and the residual through the assembled
+    sliced-ELL pair; ``setup_seconds`` then splits the setup time into the
+    partial-assembly part and the ELL pair's assembly and packing.
+    ``device=None`` is the card; pass ``device="cpu"`` for the CPU.
     """
 
     def __init__(
@@ -68,36 +88,54 @@ class BioheatOperator:
         rel_tol: float = 1e-10,
         max_iter: int = 1000,
         dtype=None,
-        device="cpu",
+        device=None,
         fused_setup: bool = False,
         theta_form: bool = False,
         dot_mode: str = "auto",
         cg_variant: str = "classic",
         transposed_apply: bool = True,
+        assembled_apply: str = "off",
         arrays: Optional[dict] = None,
     ):
         if cg_variant != "classic":
             raise NotImplementedError("only cg_variant='classic' is ported")
+        if assembled_apply not in ("off", "ell"):
+            raise ValueError(f"assembled_apply must be 'off' or 'ell', "
+                             f"got {assembled_apply!r}")
         self.fes = fes
         self.rho_c, self.k, self.w_cb, self.T_a = rho_c, k, w_cb, T_a
         self.q_met = q_met
         self.ess_bdr, self.elem_mask, self.ess_dofs = ess_bdr, elem_mask, ess_dofs
         self.rel_tol, self.max_iter = rel_tol, max_iter
         self.dtype = real_t(dtype)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.fused_setup, self.theta_form = fused_setup, theta_form
         self.dot_mode = dot_mode
         self.transposed_apply = transposed_apply
         self.cg_iterations = []
+        self.setup_seconds = {}
 
         self.restr = restriction_for(fes, self.device)
         self.db = basis_for(fes, self.dtype, self.device)
+        self._ell = self._lane = self._aff = None
         if arrays is None:
-            self._assemble()
+            # θ form on the ELL path: b_θ = b − A(T_a·1) is assembled as
+            # (Q_met, v) alone, since M_ω T_a·1 − T_a(K + M_ω)·1 = −T_a K·1
+            # = 0 in exact arithmetic.  The JAX package subtracts A(T_a·1)
+            # through the ELL apply, where K's rows rounded to float32 leave
+            # T_a-sized noise that costs the first step's solves ~50% more
+            # CG iterations at n=66 (PERF.md).
+            exact_theta = theta_form and assembled_apply == "ell"
+            t0 = time.perf_counter()
+            self._assemble(exact_theta)
             self._set_essential()
             self._diagonals()
-            self._choose_apply(self.Mrc_qd, self.Mw_qd, self.K_qd)
-            if theta_form:
+            self.setup_seconds["pa"] = self._elapsed(t0)
+            if assembled_apply == "ell":
+                self._ell = self._build_ell_pair()
+            else:
+                self._choose_apply(self.Mrc_qd, self.Mw_qd, self.K_qd)
+            if theta_form and not exact_theta:
                 # b_θ = b − A(T_a·1): computed once at setup
                 ones = torch.ones(fes.ndof, dtype=self.dtype, device=self.device)
                 self.b_const = self.b_const - self._A_apply(self.T_a * ones)
@@ -105,11 +143,17 @@ class BioheatOperator:
             self._load(arrays)
 
     # -- setup -------------------------------------------------------------
+    def _elapsed(self, t0):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
+
     def _tensor(self, a):
         return torch.tensor(np.asarray(a), dtype=self.dtype, device=self.device)
 
-    def _assemble(self):
-        """qdata, constant RHS M_ω T_a·1 + (Q_met, v), from node coordinates."""
+    def _assemble(self, exact_theta=False):
+        """qdata, constant RHS M_ω T_a·1 + (Q_met, v), from node coordinates;
+        with ``exact_theta`` the θ-form RHS (Q_met, v) alone."""
         fes = self.fes
         X = element_node_coords(fes.mesh, fes.order)
         gf = compute_geometric_factors(X, fes.d2q, self.dtype, self.device)
@@ -121,7 +165,7 @@ class BioheatOperator:
         else:
             qk = diffusion.pack_sym(diffusion.setup(gf, k_q))
         src_q = eval_coeff(self.q_met, gf, self.dtype)
-        q = qw * self.T_a
+        q = torch.zeros_like(qw) if exact_theta else qw * self.T_a
         if src_q is not None:
             q = q + gf.wdet * src_q
         if self.elem_mask is not None:
@@ -152,9 +196,32 @@ class BioheatOperator:
         self.A_diag = restr.mult_transpose(
             diffusion.diagonal(db, self.K_qd) + mass.diagonal(db, self.Mw_qd))
 
+    def _build_ell_pair(self):
+        """FULL assembly of M_ρc and A = K + M_ω (as the JAX package's
+        ``_build_ell_pair``, in the configured dtype) packed as one
+        sliced-ELL pair in the working dtype."""
+        fes, dev = self.fes, self.device
+        t0 = time.perf_counter()
+        M = BilinearForm(fes, dev).add_domain_integrator(
+            "mass", self.rho_c).assemble_matrix()
+        A = BilinearForm(fes, dev).add_domain_integrator(
+            "diffusion", self.k).assemble_matrix()
+        if np.ndim(self.w_cb) != 0 or float(np.asarray(self.w_cb)) != 0.0:
+            A = A + BilinearForm(fes, dev).add_domain_integrator(
+                "mass", self.w_cb).assemble_matrix()
+        t1 = time.perf_counter()
+        pair = MultiELLPair.from_csr_pair(M, A, self.dtype, dev)
+        self.setup_seconds["ell_assembly"] = t1 - t0
+        self.setup_seconds["ell_pair"] = self._elapsed(t1)
+        return pair
+
     def _choose_apply(self, qm, qw, qk):
         """Lane-major arrays, and the affine factors when the qdata
         separates (same detectors, same order as the JAX package)."""
+        if not self.db.tensor:
+            raise NotImplementedError(
+                "the partial-assembly simplex apply is not ported: use "
+                "assembled_apply='ell' on tets")
         self._lane = self._aff = None
         if not self.transposed_apply:
             return
@@ -186,6 +253,15 @@ class BioheatOperator:
             setattr(self, name, self._tensor(arrays[name]))
         self.has_ess = bool((self.ess_mask == 0).any())
         self._lane = self._aff = None
+        if "Md" in arrays:
+            import scipy.sparse as sp
+
+            n = self.fes.ndof
+            M, A = (sp.csr_matrix((arrays[k + "d"], arrays[k + "i"],
+                                   arrays[k + "p"]), shape=(n, n))
+                    for k in ("M", "A"))
+            self._ell = MultiELLPair.from_csr_pair(M, A, self.dtype, self.device)
+            return
         if "_dk" in arrays:
             self._lane = lanemajor.lane_basis(self.db)
             self._aff = lanemajor.affine_ops(self.db, self._lane)
@@ -210,8 +286,11 @@ class BioheatOperator:
         return self.restr.mult_transpose(mass.apply(self.db, qd_mass, e) + y)
 
     def _stage_apply(self, gamma) -> Callable:
-        """v ↦ (M_ρc + γ(K + M_ω)) v in one restriction round trip; the
-        γ-combined mass coefficient is formed once per solve."""
+        """v ↦ (M_ρc + γ(K + M_ω)) v: one weighted SpMV of the ELL pair, or
+        one restriction round trip, with the γ-combined mass coefficient
+        formed once per solve."""
+        if self._ell is not None:
+            return lambda v: self._ell.mult_combined(v, 1.0, gamma)
         restr = self.restr
         if self._aff is not None:
             dm = self._dm + gamma * self._dw
@@ -228,6 +307,8 @@ class BioheatOperator:
 
     def _A_apply(self, v):
         """(K_k + M_ω) v."""
+        if self._ell is not None:
+            return self._ell.mult1(v)
         if self._aff is not None:
             return self.restr.mult_transpose_t(
                 lanemajor.affine_mass_diffusion_apply(
@@ -273,9 +354,11 @@ def from_jax_arrays(fes: FESpace, arrays: dict, **params) -> BioheatOperator:
     """A port operator over the JAX operator's assembled arrays.
 
     ``arrays`` holds numpy copies of the JAX ``big_arrays(op)`` entries
-    (``b_const``, ``Mrc_diag``, ``A_diag``, ``ess_mask`` and either the
-    qdata ``Mrc_qd``/``Mw_qd``/``K_qd`` or the affine factors
-    ``_dm``/``_dw``/``_dk``), optionally with the JAX space's
+    (``b_const``, ``Mrc_diag``, ``A_diag``, ``ess_mask``) and the operator:
+    the assembled CSR pair under the keys of the JAX operator's ELL cache
+    (``Md``/``Mi``/``Mp`` for M_ρc, ``Ad``/``Ai``/``Ap`` for K + M_ω), the
+    qdata ``Mrc_qd``/``Mw_qd``/``K_qd``, or the affine factors
+    ``_dm``/``_dw``/``_dk``; optionally with the JAX space's
     ``gather_map``, which must equal ``fes.gather_map``.  ``b_const`` is
     taken as is (already in θ form when the JAX operator was).  ``params``
     are the constructor's keyword arguments (``rel_tol``, ``dtype``,

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 
 import torch
 
@@ -27,24 +26,13 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 _LIB = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA gather kernel cannot be built")
-    return path
-
-
 def build() -> ctypes.CDLL:
     """Compile (once per source version) and load the kernel library."""
     global _LIB
     if _LIB is None:
-        from ..utils.native import compile_once
+        from ..utils.native import build_cuda
 
-        path = compile_once(
-            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-             "-std=c++17", "-shared", "-Xcompiler", "-fPIC"],
-            _SRC, "cuda", "gather_sum")
-        lib = ctypes.CDLL(path)
+        lib = build_cuda(_SRC, "gather_sum")
         args = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
         for name in ("gather_sum_f32", "gather_sum_f64"):

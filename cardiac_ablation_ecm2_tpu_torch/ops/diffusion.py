@@ -76,9 +76,18 @@ def apply(db: DeviceBasis, qdata: torch.Tensor, u_e: torch.Tensor) -> torch.Tens
 
 
 def diagonal(db: DeviceBasis, qdata: torch.Tensor) -> torch.Tensor:
-    """diag(Gᵀ D G) per element → (ne, nd) from packed qdata: component
-    (a, b) contracts with (G∘G) along the axis equal to a and b, (B∘G) along
-    an axis equal to one of them, (B∘B) otherwise."""
+    """diag(Gᵀ D G) per element → (ne, nd) from packed qdata.  Dense basis:
+    Σ_ab G_a ∘ D_ab ∘ G_b per component.  Tensor basis: component (a, b)
+    contracts with (G∘G) along the axis equal to a and b, (B∘G) along an
+    axis equal to one of them, (B∘B) otherwise."""
+    if not db.tensor:
+        out = None
+        for a in range(3):
+            for b in range(3):
+                t = torch.einsum("qn,eq,qn->en", db.G[:, :, a],
+                                 qdata[_PIDX[(a, b)]], db.G[:, :, b])
+                out = t if out is None else out + t
+        return out
     B, G = db.B1, db.G1
     BB, BG, GG = B * B, B * G, G * G
     out = None

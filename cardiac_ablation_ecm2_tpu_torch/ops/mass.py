@@ -30,5 +30,7 @@ def apply(db: DeviceBasis, qdata: torch.Tensor, u_e: torch.Tensor) -> torch.Tens
 
 def diagonal(db: DeviceBasis, qdata: torch.Tensor) -> torch.Tensor:
     """diag(Bᵀ diag(qdata) B) per element → (ne, nd)."""
+    if not db.tensor:
+        return torch.einsum("qn,eq,qn->en", db.B, qdata, db.B)
     Bsq = db.B1 * db.B1
     return contract_q_to_e((Bsq,) * db.dim, qdata)

@@ -65,3 +65,9 @@ def require_cuda() -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available")
     return torch.device("cuda", 0)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another (``device="cpu"``); ``None`` raises without a GPU."""
+    return require_cuda() if device is None else torch.device(device)

@@ -1,13 +1,15 @@
-"""ctypes loader for the host setup library built from ``csrc/hostkernels.cpp``.
+"""ctypes loader for the host setup library built from ``csrc/hostkernels.cpp``,
+and the build helper of the port's CUDA kernels.
 
 Counterpart of ``cardiac_ablation_ecm2_tpu/utils/native.py``, with one
 difference: there is no numpy fallback.  The dof numbering must equal the
 JAX package's (first-occurrence ids from the native hash table), and the
 fallback numbers dofs in another order, so a missing library is an error.
 
-The library is built with g++ on first use into ``build/host/`` at the
-repository root (listed in ``.gitignore``); neither package directory is
-written.
+Libraries are built on first use into ``build/`` at the repository root
+(listed in ``.gitignore``): the host library with g++ into ``build/host/``,
+each CUDA kernel with nvcc for ``sm_90a`` into ``build/cuda/``.  Neither
+package directory is written.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 from typing import Optional, Tuple
 
@@ -48,6 +51,19 @@ def compile_once(cmd_prefix, src: str, kind: str, stem: str) -> str:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def build_cuda(src: str, stem: str) -> ctypes.CDLL:
+    """Compile one CUDA source with nvcc for Hopper (``sm_90a``) into a
+    shared library with a plain C interface, and load it with ctypes.
+    Raises when nvcc is missing: there is no CPU continuation."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError(f"nvcc not found: {os.path.basename(src)} cannot be built")
+    path = compile_once(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+         "-shared", "-Xcompiler", "-fPIC"], src, "cuda", stem)
+    return ctypes.CDLL(path)
 
 
 def lib() -> ctypes.CDLL:

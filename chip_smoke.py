@@ -7,8 +7,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 0. Device: a CUDA device must be visible; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
-1. Build: the host setup library (g++) and the CUDA gather-sum kernel
-   (nvcc, ``sm_90a``), from the sources in this checkout.
+1. Build: the host setup library (g++) and the two CUDA kernels, gather-sum
+   and sliced-ELL SpMV (one nvcc each, ``sm_90a``, started together), from
+   the sources in this checkout.
 2. Kernel against its plain PyTorch version on the card: random planes
    with sentinels (J = 1 and 8, float32 and float64), then the restriction
    planes of the 995,336-hex mesh in all four layouts.  All must be bitwise
@@ -25,6 +26,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (``tools/mfem_bioheat_bench.cpp``, ``bench_baseline.json``).  θ_max must
    lie within 2e-3 relative of MFEM's 1.21339844, CG iterations per solve
    within 16 ± 2, and the gather kernel must have launched.
+5. Tet kernels against their plain versions on the card, at the shapes of
+   the 956,820-tet mesh (n=66): the gather kernel on its E→L planes (up to
+   46 multiplicity planes, float32 and float64, bitwise equal); the ELL
+   kernel on the assembled pair in float32 and float64 with c0 = 1 and
+   c1 = γ of an SDIRK33 stage, random x.  Bitwise equal (both take the same
+   rounded operations in the same order); prints the median CUDA-event time
+   of the kernel, of the plain version and of cuSPARSE (``torch.mv`` on the
+   combined CSR matrix, timed as a yardstick only), the bytes moved, GB/s
+   and the bound.
+6. Tet end to end: cardiac tet n=12 in float64 with the assembled ELL,
+   three steps on CUDA and on CPU tensors (θ within 1e-10 relative, equal CG
+   iterations per stage); cardiac tet n=32 in float32 on CUDA, θ_max within
+   2e-3 relative of the JAX package's (float64, CPU), CG iterations per
+   solve printed beside MFEM's 22.0.  MFEM's n=32 θ_max (2.39986753) is
+   printed but not held: neither package reaches it after any of the first
+   eight steps on this mesh, while the n=66 row holds (PERF.md).
+7. Tet main path: ``BENCH_MESH=cardiac-tet BENCH_N=66 BENCH_ELL=1`` at full
+   size (956,820 tets, 1,278,670 dofs, order 2, float32), MFEM's FULL
+   assembly run (``bench_baseline.json``): host and device setup seconds,
+   one warm-up and two timed steps, θ_max within 2e-3 relative of MFEM's
+   1.19519539, CG iterations per solve within 15% of 39.78, and the ELL
+   kernel must have launched.
 
 The last two lines of standard output are one JSON object describing the
 kernels and one JSON object with the device.
@@ -35,6 +58,7 @@ from __future__ import annotations
 import json
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -42,12 +66,26 @@ import torch
 L = 0.04
 MFEM_THETA_MAX = 1.21339844      # bench_baseline.json, cardiac-hex n=126
 MFEM_CG_ITERS = 16.0
+# bench_baseline.json, cardiac-tet rows (FULL assembly)
+MFEM_TET66 = dict(theta_max=1.19519539, cg_iters=39.78, s_step=42.2357)
+MFEM_TET32 = dict(theta_max=2.39986753, cg_iters=22.0, ne=108_941, ndof=150_037)
+# θ_max after three steps on tet n=32 from the JAX package, float64 on the
+# CPU, partial-assembly apply: ``python tests/test_torch_ell.py --n 32``
+JAX_TET32_THETA_MAX = 1.43921577
 SETTINGS = dict(rho_c=3.6e6, k=0.54, w_cb=2e4, T_a=37.0,
                 ess_bdr=[1, 2, 3, 4, 5, 6], rel_tol=1e-5, max_iter=300,
                 fused_setup=True, theta_form=True, dot_mode="auto",
                 cg_variant="classic")
-KERNEL_SOURCE = "cardiac_ablation_ecm2_tpu_torch/csrc/gather_sum.cu"
-REPLACES = "cardiac_ablation_ecm2_tpu/ops/block_gather.py:170"
+GAMMA = 0.25 * 0.435866521508458999416019   # dt · a_ii of SDIRK33
+HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
+KERNELS = {
+    "gather_sum": dict(
+        source="cardiac_ablation_ecm2_tpu_torch/csrc/gather_sum.cu",
+        replaces="cardiac_ablation_ecm2_tpu/ops/block_gather.py:170"),
+    "ell_spmv": dict(
+        source="cardiac_ablation_ecm2_tpu_torch/csrc/ell_spmv.cu",
+        replaces="cardiac_ablation_ecm2_tpu/ops/ell.py:118"),
+}
 
 
 def check(cond, what):
@@ -93,14 +131,15 @@ def phase_device():
 
 def phase_build():
     from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
+    from cardiac_ablation_ecm2_tpu_torch.ops import ell
     from cardiac_ablation_ecm2_tpu_torch.utils import native
 
     t0 = time.perf_counter()
-    native.lib()
-    t1 = time.perf_counter()
-    bg.build()
-    t2 = time.perf_counter()
-    print(f"[1] build: host library {t1 - t0:.2f} s, CUDA kernel {t2 - t1:.2f} s")
+    with ThreadPoolExecutor(3) as pool:
+        for f in [pool.submit(b) for b in (native.lib, bg.build, ell.build)]:
+            f.result()
+    print(f"[1] build: host library and two CUDA kernels in parallel, "
+          f"{time.perf_counter() - t0:.2f} s")
 
 
 class KernelCheck:
@@ -111,7 +150,10 @@ class KernelCheck:
         self.max_abs_err = 0.0
         self.round_trip = {}
 
-    def compare(self, label, src, idx, timed=False):
+    def compare(self, label, src, idx, timed=False, library=None, tag="[2]"):
+        """Kernel against plain; with ``timed``, also the bound (index
+        planes, source and output each moved once) and, where given, the
+        time of the ``library`` call computing the same function."""
         from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
 
         out = bg.gather_sum(src, idx)
@@ -122,16 +164,21 @@ class KernelCheck:
         bits = torch.int64 if src.dtype == torch.float64 else torch.int32
         check(torch.equal(out.view(bits), ref.view(bits)),
               f"{label}: kernel bitwise equal to plain")
-        msg = f"[2] {label}: J={idx.shape[0]} nout={idx.shape[1]} bitwise equal"
+        msg = f"{tag} {label}: J={idx.shape[0]} nout={idx.shape[1]} bitwise equal"
         if timed:
             ms = time_ms(lambda: bg.gather_sum(src, idx))
             plain_ms = time_ms(lambda: bg.gather_sum_plain(src, idx))
             live = int((idx < src.shape[0]).sum())
             nbytes = idx.numel() * 4 + (live + idx.shape[1]) * src.element_size()
+            bound = (idx.numel() * 4 + (src.shape[0] + idx.shape[1])
+                     * src.element_size()) / HBM_BYTES_PER_S * 1e3
+            lib_ms = time_ms(library) if library is not None else None
             msg += (f"; kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), "
                     f"plain {plain_ms:.4f} ms ({nbytes / plain_ms / 1e6:.1f} GB/s)"
-                    f", {nbytes / 1e9:.3f} GB moved")
-            self.round_trip[label] = (ms, plain_ms)
+                    f", {nbytes / 1e9:.3f} GB moved; bound {bound:.4f} ms")
+            if lib_ms is not None:
+                msg += f"; library {lib_ms:.4f} ms"
+            self.round_trip[label] = (ms, plain_ms, bound, lib_ms)
         print(msg)
 
 
@@ -159,9 +206,12 @@ def phase_kernel_restriction(kc, fes):
     u = torch.randn(fes.ndof, generator=gen, device=kc.dev)
     ue = torch.randn(r.ne * r.nd, generator=gen, device=kc.dev)
     kc.compare("L->E (ne,nd)", u, r.g, timed=True)
-    kc.compare("L->E (nd,ne)", u, r.gT, timed=True)
+    gT = r.gT[0].long()
+    kc.compare("L->E (nd,ne)", u, r.gT, timed=True,
+               library=lambda: u.index_select(0, gT))
     kc.compare("E->L (ne,nd)", ue, r.s, timed=True)
-    kc.compare("E->L (nd,ne)", ue, r.sT, timed=True)
+    kc.compare("E->L (nd,ne)", ue, r.sT, timed=True,
+               library=lambda: torch.zeros_like(u).index_add_(0, gT, ue))
 
 
 def run_steps(op, steps, dt=0.25):
@@ -176,44 +226,43 @@ def run_steps(op, steps, dt=0.25):
     return T
 
 
+def small_cuda_vs_cpu(label, fes, dev, **kw):
+    """Three float64 steps on CUDA and on CPU tensors: θ within 1e-10
+    relative and equal CG iterations in every stage solve.  Each side runs
+    twice, and whether it repeated itself bit for bit is printed."""
+    from cardiac_ablation_ecm2_tpu_torch.models.bioheat import BioheatOperator
+
+    ops = [BioheatOperator(fes, q_met=source, dtype="float64", device=d,
+                           **SETTINGS, **kw) for d in (dev, "cpu")]
+    (Tg, Tg2), (Tc, Tc2) = ([run_steps(op, 3).cpu() for _ in range(2)]
+                            for op in ops)
+    rel = float((Tg - Tc).abs().max() / Tc.abs().max())
+    print(f"{label} f64, {fes.ndof} dofs: CUDA vs CPU theta rel diff {rel:.3e}, "
+          f"CG iterations {ops[0].cg_iterations} vs {ops[1].cg_iterations}; "
+          f"second run bitwise equal to the first: CUDA "
+          f"{torch.equal(Tg, Tg2)}, CPU {torch.equal(Tc, Tc2)}")
+    check(rel <= 1e-10, f"{label} kernel path within 1e-10 of the plain path")
+    check(ops[0].cg_iterations == ops[1].cg_iterations,
+          f"{label} equal CG iterations per stage")
+
+
 def phase_small_end_to_end(dev):
     from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
     from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
-    from cardiac_ablation_ecm2_tpu_torch.models.bioheat import BioheatOperator
 
     fes = FESpace(make_cardiac_hex_mesh(16, lengths=(L, L, L / 2),
                                         electrode_radius=0.004), 2)
-    ops = [BioheatOperator(fes, q_met=source, dtype="float64", device=d,
-                           **SETTINGS) for d in (dev, "cpu")]
-    Tg, Tc = (run_steps(op, 3).cpu() for op in ops)
-    rel = float((Tg - Tc).abs().max() / Tc.abs().max())
-    print(f"[3] n=16 f64, {fes.ndof} dofs: CUDA vs CPU theta rel diff {rel:.3e}, "
-          f"CG iterations {ops[0].cg_iterations} vs {ops[1].cg_iterations}")
-    check(rel <= 1e-10, "n=16 kernel path within 1e-10 of the plain path")
-    check(ops[0].cg_iterations == ops[1].cg_iterations,
-          "n=16 equal CG iterations per stage")
+    small_cuda_vs_cpu("[3] hex n=16", fes, dev)
 
 
-def phase_main(dev, mesh, fes, host_s):
-    """Setup and three steps of the benchmark configuration in float32;
-    returns the gather kernel's launch count in this run."""
+def timed_steps(op):
+    """One warm-up step and two steps timed with CUDA events (the protocol
+    of MFEM's reference program); returns (θ, s/step, host-clock s/step)."""
     from cardiac_ablation_ecm2_tpu_torch.linalg import ode
     from cardiac_ablation_ecm2_tpu_torch.models import bioheat
-    from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
 
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    bg.gather_sum.launches = 0
-    t0 = time.perf_counter()
-    op = bioheat.BioheatOperator(fes, q_met=source, dtype="float32",
-                                 device=dev, **SETTINGS)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    check(op._lane is not None and op._aff is None,
-          "warped hexes take the per-quadrature-point lane-major path")
     step = bioheat.make_stepper(op, ode.select("sdirk33"))
-    T = torch.zeros(fes.ndof, dtype=torch.float32, device=dev)
+    T = torch.zeros(op.fes.ndof, dtype=op.dtype, device=op.device)
     T, t = step(T, 0.0, 0.25)                    # warm-up step
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -224,30 +273,221 @@ def phase_main(dev, mesh, fes, host_s):
         T, t = step(T, t, 0.25)
     b.record()
     torch.cuda.synchronize()
-    host_step = (time.perf_counter() - h0) / 2
-    launches = bg.gather_sum.launches
-    s_step = a.elapsed_time(b) / 1e3 / 2
-    peak = torch.cuda.max_memory_allocated()
+    return T, a.elapsed_time(b) / 1e3 / 2, (time.perf_counter() - h0) / 2
+
+
+def start_main_path():
+    """Every launch count to 0 and a fresh peak-memory reading, just before
+    a main path is driven."""
+    from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
+    from cardiac_ablation_ecm2_tpu_torch.ops import ell
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bg.gather_sum.launches = 0
+    ell.ell_spmv.launches = 0
+
+
+def main_path_launches():
+    from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
+    from cardiac_ablation_ecm2_tpu_torch.ops import ell
+
+    return {"gather_sum": bg.gather_sum.launches,
+            "ell_spmv": ell.ell_spmv.launches}
+
+
+def report_run(tag, op, T, theta_ref, ref_name="MFEM"):
+    """Print and return (θ_max, its per solve, rel diff to the reference)
+    after checking θ is finite and of the expected shape."""
+    check(T.shape == (op.fes.ndof,) and bool(torch.isfinite(T).all()),
+          f"{tag} finite θ of the expected shape")
     theta_max = float(T.max())
     its = op.cg_iterations
     per_solve = sum(its) / len(its)
-    rel = abs(theta_max - MFEM_THETA_MAX) / MFEM_THETA_MAX
+    rel = abs(theta_max - theta_ref) / theta_ref
+    print(f"{tag} CG iterations per solve {per_solve:.2f} {its}")
+    print(f"{tag} theta_max {theta_max:.8f}, rel diff to {ref_name} "
+          f"{theta_ref} = {rel:.3e}")
+    return theta_max, per_solve, rel
+
+
+def phase_main(dev, mesh, fes, host_s):
+    """Setup and three steps of the benchmark configuration in float32;
+    returns the gather kernel's launch count in this run."""
+    from cardiac_ablation_ecm2_tpu_torch.models import bioheat
+
+    start_main_path()
+    t0 = time.perf_counter()
+    op = bioheat.BioheatOperator(fes, q_met=source, dtype="float32",
+                                 device=dev, **SETTINGS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(op._lane is not None and op._aff is None,
+          "warped hexes take the per-quadrature-point lane-major path")
+    T, s_step, host_step = timed_steps(op)
+    launches = main_path_launches()["gather_sum"]
+    peak = torch.cuda.max_memory_allocated()
     print(f"[4] cardiac hex n=126 order 2 f32: {mesh.ne} elements, "
           f"{fes.ndof} dofs")
     print(f"[4] host setup: mesh {host_s[0]:.2f} s, FESpace {host_s[1]:.2f} s; "
           f"device setup (operator incl. restriction planes) {setup_s:.2f} s")
     print(f"[4] s/step {s_step:.6f} (CUDA events; host clock {host_step:.6f}), "
           f"{fes.ndof / s_step:.1f} DOF/s; MFEM CPU 145.408 s/step")
-    print(f"[4] CG iterations per solve {per_solve:.2f} {its}")
-    print(f"[4] theta_max {theta_max:.8f}, rel diff to MFEM "
-          f"{MFEM_THETA_MAX} = {rel:.3e}")
+    _, per_solve, rel = report_run("[4]", op, T, MFEM_THETA_MAX)
     print(f"[4] gather-kernel launches {launches}, "
           f"max_memory_allocated {peak / 2**30:.3f} GiB")
-    check(T.shape == (fes.ndof,) and bool(torch.isfinite(T).all()),
-          "finite θ of the expected shape")
     check(rel <= 2e-3, "theta_max within 2e-3 of MFEM")
     check(abs(per_solve - MFEM_CG_ITERS) <= 2, "CG iterations within 16 ± 2")
     check(launches > 0, "the main path launched the gather kernel")
+    return launches
+
+
+def tet_space(n):
+    """Cardiac tet mesh and its order-2 space, with the host seconds of
+    each."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_tet_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_cardiac_tet_mesh(n, lengths=(L, L, L / 2), electrode_radius=0.004)
+    t1 = time.perf_counter()
+    fes = FESpace(mesh, 2)
+    return mesh, fes, (t1 - t0, time.perf_counter() - t1)
+
+
+def ell_bound(pair, elsize):
+    """Least bytes of one SpMV (column and both weights of every entry, row
+    id and output of every row, x once) and the bound at the card's HBM
+    rate, in ms; the ~5 flops per entry need far less at 67 TFLOP/s."""
+    nbytes = pair.nnz * (4 + 2 * elsize) + pair.n * (4 + 2 * elsize)
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_tet_restriction(kc, fes):
+    """The gather kernel against its plain version on the E→L planes of the
+    n=66 tet space (up to 46 multiplicity planes), which the tet main path
+    runs in setup (right-hand side, diagonals), in float32 and float64."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.restriction import ElementRestriction
+
+    r = ElementRestriction(fes.gather_map, fes.ndof, kc.dev)
+    gen = torch.Generator(device=kc.dev).manual_seed(2)
+    for dtype in (torch.float32, torch.float64):
+        ue = torch.randn(r.ne * r.nd, generator=gen, device=kc.dev, dtype=dtype)
+        kc.compare(f"tet E->L (ne,nd) {str(dtype)[6:]}", ue, r.s,
+                   timed=dtype == torch.float32, tag="[5]")
+
+
+def phase_ell_kernel(dev, fes):
+    """The ELL kernel against its plain version on the n=66 pair; returns
+    the float32 numbers for the kernels line."""
+    from cardiac_ablation_ecm2_tpu_torch.ops import ell
+    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
+
+    t0 = time.perf_counter()
+    M = BilinearForm(fes, dev).add_domain_integrator(
+        "mass", SETTINGS["rho_c"]).assemble_matrix()
+    A = (BilinearForm(fes, dev).add_domain_integrator(
+        "diffusion", SETTINGS["k"]).assemble_matrix()
+        + BilinearForm(fes, dev).add_domain_integrator(
+            "mass", SETTINGS["w_cb"]).assemble_matrix())
+    print(f"[5] FULL assembly of M and A ({M.nnz} nnz each): "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(7)
+    x64 = rng.standard_normal(fes.ndof)
+    out = {"max_abs_err": 0.0}
+    for dtype in (torch.float64, torch.float32):
+        t0 = time.perf_counter()
+        pair = ell.MultiELLPair.from_csr_pair(M, A, dtype, dev)
+        torch.cuda.synchronize()
+        pair_s = time.perf_counter() - t0
+        x = torch.as_tensor(x64, dtype=dtype, device=dev)
+        y = ell.ell_spmv(pair, x, 1.0, GAMMA)
+        ref = ell.ell_spmv_plain(pair, x, 1.0, GAMMA)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        bits = torch.int64 if dtype == torch.float64 else torch.int32
+        check(torch.equal(y.view(bits), ref.view(bits)),
+              f"ell_spmv {dtype}: kernel bitwise equal to plain")
+        C = (M + GAMMA * A).tocsr()
+        C.sort_indices()
+        Ct = torch.sparse_csr_tensor(
+            torch.as_tensor(C.indptr, dtype=torch.int64, device=dev),
+            torch.as_tensor(C.indices, dtype=torch.int64, device=dev),
+            torch.as_tensor(C.data, dtype=dtype, device=dev), size=C.shape)
+        lib_err = float((torch.mv(Ct, x) - y).abs().max() / y.abs().max())
+        ms = time_ms(lambda: ell.ell_spmv(pair, x, 1.0, GAMMA))
+        plain_ms = time_ms(lambda: ell.ell_spmv_plain(pair, x, 1.0, GAMMA))
+        lib_ms = time_ms(lambda: torch.mv(Ct, x))
+        nbytes, bound = ell_bound(pair, x.element_size())
+        print(f"[5] ell_spmv {str(dtype)[6:]}: n={pair.n} nnz={pair.nnz} "
+              f"slots={pair.cols.numel()} buckets (rows, width) "
+              f"{[(b[1], b[2]) for b in pair.buckets]}; pair built in "
+              f"{pair_s:.2f} s; bitwise equal to plain; cuSPARSE rel diff "
+              f"{lib_err:.2e}")
+        print(f"[5] ell_spmv {str(dtype)[6:]}: kernel {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
+              f"cuSPARSE torch.mv {lib_ms:.4f} ms; {nbytes / 1e9:.3f} GB "
+              f"moved, bound {bound:.4f} ms (bytes)")
+        if dtype == torch.float32:
+            out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound)
+        del pair, Ct
+    return out
+
+
+def phase_tet_small(dev):
+    from cardiac_ablation_ecm2_tpu_torch.models import bioheat
+
+    _, fes, _ = tet_space(12)
+    small_cuda_vs_cpu("[6] tet n=12", fes, dev, assembled_apply="ell")
+    mesh, fes, _ = tet_space(32)
+    check((mesh.ne, fes.ndof) == (MFEM_TET32["ne"], MFEM_TET32["ndof"]),
+          "tet n=32 mesh size")
+    op = bioheat.BioheatOperator(fes, q_met=source, dtype="float32", device=dev,
+                                 assembled_apply="ell", **SETTINGS)
+    T = run_steps(op, 3)
+    print(f"[6] tet n=32 f32: {mesh.ne} tets, {fes.ndof} dofs; MFEM "
+          f"{MFEM_TET32['cg_iters']} CG iterations per solve, theta_max "
+          f"{MFEM_TET32['theta_max']} (a stale row: PERF.md)")
+    _, _, rel = report_run("[6] tet n=32", op, T, JAX_TET32_THETA_MAX,
+                           "the JAX package")
+    check(rel <= 2e-3, "tet n=32 theta_max within 2e-3 of the JAX package's")
+
+
+def phase_tet_main(dev, mesh, fes, host_s):
+    """``BENCH_MESH=cardiac-tet BENCH_N=66 BENCH_ELL=1``: setup and three
+    steps in float32; returns the launch counts of this run."""
+    from cardiac_ablation_ecm2_tpu_torch.models import bioheat
+
+    start_main_path()
+    t0 = time.perf_counter()
+    op = bioheat.BioheatOperator(fes, q_met=source, dtype="float32",
+                                 device=dev, assembled_apply="ell", **SETTINGS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(op._ell is not None, "tets take the assembled-ELL apply")
+    T, s_step, host_step = timed_steps(op)
+    launches = main_path_launches()
+    peak = torch.cuda.max_memory_allocated()
+    sec = op.setup_seconds
+    print(f"[7] cardiac tet n=66 order 2 f32, assembled ELL: {mesh.ne} tets, "
+          f"{fes.ndof} dofs, {op._ell.nnz} nnz")
+    print(f"[7] host setup: mesh {host_s[0]:.2f} s, FESpace {host_s[1]:.2f} s; "
+          f"operator {setup_s:.2f} s = partial-assembly setup {sec['pa']:.2f} s "
+          f"+ FULL assembly {sec['ell_assembly']:.2f} s + ELL pair "
+          f"{sec['ell_pair']:.2f} s + restriction planes and basis")
+    print(f"[7] s/step {s_step:.6f} (CUDA events; host clock {host_step:.6f}), "
+          f"{fes.ndof / s_step:.1f} DOF/s; MFEM CPU {MFEM_TET66['s_step']} s/step")
+    _, per_solve, rel = report_run("[7]", op, T, MFEM_TET66["theta_max"])
+    print(f"[7] ell-kernel launches {launches['ell_spmv']}, gather-kernel "
+          f"launches {launches['gather_sum']}, max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB")
+    check(rel <= 2e-3, "tet n=66 theta_max within 2e-3 of MFEM")
+    check(abs(per_solve - MFEM_TET66["cg_iters"]) <= 0.15 * MFEM_TET66["cg_iters"],
+          "tet n=66 CG iterations per solve within 15% of MFEM's 39.78")
+    check(launches["ell_spmv"] > 0, "the tet main path launched the ELL kernel")
     return launches
 
 
@@ -271,16 +511,31 @@ def main():
     check((mesh.ne, fes.ndof) == (995_336, 8_092_657), "n=126 mesh size")
     phase_kernel_restriction(kc, fes)
     phase_small_end_to_end(dev)
-    launches = phase_main(dev, mesh, fes, (t1 - t0, t2 - t1))
+    hex_launches = phase_main(dev, mesh, fes, (t1 - t0, t2 - t1))
+    del mesh, fes
 
-    # the restriction round trip of one CG apply: L->E and E->L, (nd, ne)
-    trip = ("L->E (nd,ne)", "E->L (nd,ne)")
-    print(json.dumps({"kernels": [{
-        "name": "gather_sum", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": kc.max_abs_err,
-        "ms": sum(kc.round_trip[k][0] for k in trip),
-        "plain_ms": sum(kc.round_trip[k][1] for k in trip)}]}))
+    mesh, fes, host_s = tet_space(66)
+    check((mesh.ne, fes.ndof) == (956_820, 1_278_670), "tet n=66 mesh size")
+    phase_tet_restriction(kc, fes)
+    ell_numbers = phase_ell_kernel(dev, fes)
+    phase_tet_small(dev)
+    tet_launches = phase_tet_main(dev, mesh, fes, host_s)
+
+    # gather_sum: the restriction round trip of one CG apply on the hex
+    # main path, L->E and E->L in the (nd, ne) layout
+    trip = [kc.round_trip[k] for k in ("L->E (nd,ne)", "E->L (nd,ne)")]
+    print(json.dumps({"kernels": [
+        dict(name="gather_sum", route="cuda", **KERNELS["gather_sum"],
+             launches=hex_launches, max_abs_err=kc.max_abs_err,
+             ms=sum(t[0] for t in trip), plain_ms=sum(t[1] for t in trip),
+             bound_ms=sum(t[2] for t in trip), bound_by="bytes",
+             library_ms=sum(t[3] for t in trip)),
+        dict(name="ell_spmv", route="cuda", **KERNELS["ell_spmv"],
+             launches=tet_launches["ell_spmv"],
+             max_abs_err=ell_numbers["max_abs_err"], ms=ell_numbers["ms"],
+             plain_ms=ell_numbers["plain_ms"], bound_ms=ell_numbers["bound_ms"],
+             bound_by="bytes", library_ms=ell_numbers["library_ms"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

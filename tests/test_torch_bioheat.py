@@ -117,7 +117,7 @@ def _build(kind, transposed_apply=True, fused_setup=True):
     _, tm = _meshes(kind)
     tfes = FESpace(tm, 2)
     params = dict(PARAMS, fused_setup=fused_setup, **_extra(kind, tfes))
-    top = tbio.BioheatOperator(tfes, q_met=_src(torch.exp),
+    top = tbio.BioheatOperator(tfes, q_met=_src(torch.exp), device="cpu",
                                transposed_apply=transposed_apply, **params)
     return _jax_op(kind, transposed_apply, fused_setup), top
 
@@ -174,7 +174,7 @@ def test_from_jax_arrays_step_matches_jax(kind):
     arrays["gather_map"] = np.asarray(jfes.gather_map)
     params = {k: v for k, v in PARAMS.items()
               if k in ("rel_tol", "max_iter", "dtype", "theta_form")}
-    top = tbio.from_jax_arrays(FESpace(tm, 2), arrays, **params)
+    top = tbio.from_jax_arrays(FESpace(tm, 2), arrays, device="cpu", **params)
     theta = np.random.default_rng(2).uniform(0.0, 0.5, jfes.ndof)
     theta *= np.asarray(jop.ess_mask)
     jT, jit = _run_jax(jop, theta, 1)
@@ -188,4 +188,4 @@ def test_from_jax_arrays_rejects_other_numbering():
     fes = FESpace(tm, 2)
     arrays = {"gather_map": fes.gather_map[::-1].copy()}
     with pytest.raises(ValueError):
-        tbio.from_jax_arrays(fes, arrays)
+        tbio.from_jax_arrays(fes, arrays, device="cpu")

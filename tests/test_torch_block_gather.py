@@ -100,7 +100,7 @@ def test_restriction_matches_fast_element_restriction():
     assert np.array_equal(gm, tfes.gather_map)
     ne, nd = gm.shape
     fast = FastElementRestriction.from_map(gm, jfes.ndof_scalar)
-    r = ElementRestriction(tfes.gather_map, tfes.ndof_scalar)
+    r = ElementRestriction(tfes.gather_map, tfes.ndof_scalar, "cpu")
 
     rng = np.random.default_rng(0)
     u = rng.standard_normal(tfes.ndof_scalar).astype(np.float32)

@@ -1,19 +1,28 @@
-"""The hand-written CUDA gather-sum kernel on the card: bitwise equal to its
-plain PyTorch version, and the restriction on CUDA equal to the one on the
-CPU.  Needs an NVIDIA GPU and nvcc; skips without a GPU.  This file imports
-no JAX, so it also runs where JAX is not installed:
+"""The hand-written CUDA kernels on the card: the gather-sum and the
+sliced-ELL SpMV bitwise equal to their plain PyTorch versions, and the
+restriction and the tet ELL operator on CUDA equal to the ones on the CPU.
+Needs an NVIDIA GPU and nvcc; skips without a GPU.  This file imports no
+JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
 from cardiac_ablation_ecm2_tpu_torch.fem.restriction import ElementRestriction
-from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
+from cardiac_ablation_ecm2_tpu_torch.linalg import ode
+from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import (
+    make_cardiac_hex_mesh,
+    make_cardiac_tet_mesh,
+)
+from cardiac_ablation_ecm2_tpu_torch.models import bioheat
 from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
+from cardiac_ablation_ecm2_tpu_torch.ops import ell
+from cardiac_ablation_ecm2_tpu_torch.utils.config import config, configure
 
 pytestmark = pytest.mark.cuda
 
@@ -50,7 +59,7 @@ def test_restriction_cuda_equals_cpu(cuda):
     fes = FESpace(make_cardiac_hex_mesh(12, lengths=(L, L, L / 2),
                                         electrode_radius=0.004), 2)
     rc = ElementRestriction(fes.gather_map, fes.ndof, cuda)
-    rh = ElementRestriction(fes.gather_map, fes.ndof)
+    rh = ElementRestriction(fes.gather_map, fes.ndof, "cpu")
     rng = np.random.default_rng(0)
     u = torch.as_tensor(rng.standard_normal(fes.ndof))
     ue = torch.as_tensor(rng.standard_normal(fes.gather_map.shape))
@@ -60,3 +69,61 @@ def test_restriction_cuda_equals_cpu(cuda):
     ueT = ue.T.contiguous()
     assert torch.equal(rc.mult_transpose_t(ueT.to(cuda)).cpu(),
                        rh.mult_transpose_t(ueT))
+
+
+def _random_pair(n, seed):
+    rng = np.random.default_rng(seed)
+
+    def one():
+        nnz = rng.integers(1, 140, n)
+        rows = np.repeat(np.arange(n), nnz)
+        cols = rng.integers(0, n, rows.size)
+        return sp.csr_matrix((rng.standard_normal(rows.size), (rows, cols)),
+                             shape=(n, n))
+
+    return one(), one()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_kernel_bitwise_equals_plain(cuda, dtype):
+    A, B = _random_pair(20_011, 3)
+    pair = ell.MultiELLPair.from_csr_pair(A, B, dtype, cuda)
+    x = torch.as_tensor(np.random.default_rng(4).standard_normal(A.shape[0]),
+                        dtype=dtype, device=cuda)
+    x[::89] = -0.0
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    for c0, c1 in ((1.0, 0.10896662), (0.0, 1.0), (1.0, 0.0), (-2.0, 5.0)):
+        before = ell.ell_spmv.launches
+        y = ell.ell_spmv(pair, x, c0, c1)
+        torch.cuda.synchronize()
+        assert ell.ell_spmv.launches == before + 1
+        ref = ell.ell_spmv_plain(pair, x, c0, c1)
+        assert torch.equal(y.view(bits), ref.view(bits))
+
+
+def test_tet_ell_operator_cuda_equals_cpu(cuda):
+    L = 0.04
+    old = config.quad_extra
+    configure(quad_extra=0)
+    try:
+        fes = FESpace(make_cardiac_tet_mesh(6, lengths=(L, L, L / 2),
+                                            electrode_radius=0.004), 2)
+        kw = dict(rho_c=3.6e6, k=0.54, w_cb=2e4, q_met=1e6,
+                  ess_bdr=[1, 2, 3, 4, 5, 6], rel_tol=1e-5, max_iter=300,
+                  dtype="float64", fused_setup=True, theta_form=True,
+                  assembled_apply="ell")
+        ops = [bioheat.BioheatOperator(fes, device=d, **kw) for d in (cuda, "cpu")]
+    finally:
+        configure(quad_extra=old)
+    before = ell.ell_spmv.launches
+    Ts = []
+    for op in ops:
+        step = bioheat.make_stepper(op, ode.select("sdirk33"))
+        T = torch.zeros(fes.ndof, dtype=torch.float64, device=op.device)
+        for _ in range(2):
+            T, _t = step(T, 0.0, 0.25)
+        Ts.append(T.cpu())
+    assert ell.ell_spmv.launches > before
+    assert ops[0].cg_iterations == ops[1].cg_iterations
+    rel = float((Ts[0] - Ts[1]).abs().max() / Ts[1].abs().max())
+    assert rel <= 1e-10, rel

@@ -56,8 +56,9 @@ def _setup(kind, p=2, nq1d=3):
     X = element_node_coords(jm, p)
     jd, td = jd2q(JGeometry.CUBE, p, nq1d), td2q(Geometry.CUBE, p, nq1d)
     jgf = jgfm.compute_geometric_factors(X, jd, "float64")
-    tgf = tgfm.compute_geometric_factors(X, td, "float64")
-    return jgf, tgf, jqi.device_basis(jd, "float64"), tqi.device_basis(td, "float64")
+    tgf = tgfm.compute_geometric_factors(X, td, "float64", "cpu")
+    return (jgf, tgf, jqi.device_basis(jd, "float64"),
+            tqi.device_basis(td, "float64", "cpu"))
 
 
 @pytest.mark.parametrize("kind", ["cardiac", "cartesian"])
