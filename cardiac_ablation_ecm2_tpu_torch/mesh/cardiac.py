@@ -1,5 +1,6 @@
-"""Cardiac-like benchmark meshes (numpy copy of ``make_cardiac_tet_mesh``
-and ``make_cardiac_hex_mesh`` from ``cardiac_ablation_ecm2_tpu/mesh/cardiac.py``).
+"""Cardiac-like benchmark meshes (numpy copy of ``make_cardiac_tet_mesh``,
+``make_cardiac_hex_mesh`` and ``make_cardiac_hex_lattice`` from
+``cardiac_ablation_ecm2_tpu/mesh/cardiac.py``).
 
 A tissue block with a hemispherical electrode notch carved at the top
 centre, from jittered and smoothly warped lattice points, so every element
@@ -9,7 +10,9 @@ has its own Jacobian:
   dropped and every tet oriented positive;
 * hexes: the lattice itself, with boundary-preserving jitter and warp.
 
-Elements are ordered along a Morton curve of their centroids.  Boundary
+Elements are ordered along a Morton curve of their centroids, except in the
+lattice form, which keeps the full lattice in x-fastest order with a
+keep-mask of the carved elements.  Boundary
 attributes: 1 = outer tissue surface, 2 = electrode surface, 3 = ground pad
 (z=0).
 
@@ -209,3 +212,41 @@ def make_cardiac_hex_mesh(
         boundary=bquads,
         bdr_attributes=battr,
     )
+
+
+def make_cardiac_hex_lattice(
+    n: int = 24,
+    lengths=(40.0, 40.0, 20.0),
+    electrode_radius: float = 4.0,
+    jitter: float = 0.22,
+    seed: int = 0,
+):
+    """Masked-lattice form of :func:`make_cardiac_hex_mesh`: the FULL
+    warped and jittered hex lattice (same seed, same rng sequence, so the
+    same vertices) with neither Morton reorder nor vertex remap, and the
+    keep-mask of the elements the carved mesh retains.  Elements stay x
+    fastest, so a ``CartesianFESpace`` over the lattice runs the carved
+    problem with ``elem_mask`` and ``fem.masked_lattice``'s essential dofs.
+    Returns ``(mesh_full, keep, ns)``, ``ns`` the elements per axis."""
+    rng = np.random.default_rng(seed)
+    L = np.asarray(lengths, dtype=np.float64)
+    ns = np.array(
+        [n, max(2, int(round(n * L[1] / L[0]))),
+         max(2, int(round(n * L[2] / L[0])))]
+    )
+    m = make_cartesian_3d(*map(int, ns), *map(float, L))
+    pts = _jitter(m.vertices.copy(), L / ns, L, jitter, rng)
+    pts = _warp(pts, L)
+
+    ctr = _electrode_center(L)
+    cent = pts[m.elements].mean(axis=1)
+    keep = np.linalg.norm(cent - ctr, axis=1) > electrode_radius
+    mesh_full = Mesh(
+        geom=Geometry.CUBE,
+        vertices=pts,
+        elements=m.elements,
+        attributes=m.attributes,
+        boundary=m.boundary,
+        bdr_attributes=m.bdr_attributes,
+    )
+    return mesh_full, keep, tuple(int(v) for v in ns)

@@ -21,7 +21,12 @@ Apply paths, chosen at setup as in the JAX package:
   elements, constant coefficients) the apply runs on reference matrices;
 * element-major sum-factorized (``ops/mass.py``, ``ops/diffusion.py``):
   the residual (K + M_ω)T on the non-affine path, and the stage operator
-  when ``transposed_apply`` is off.
+  when ``transposed_apply`` is off.  Its diffusion half is the fused kernel
+  ``ops/fused_diffusion.py`` on the card.
+
+A ``CartesianFESpace`` (``fem/cartesian.py``) brings its gather-free
+structured restriction, which every apply then goes through;
+``collapse_uniform_qdata`` shares one element's qdata when all are equal.
 
 Tets run only through the assembled ELL: their partial-assembly applies
 (lane-major simplex, affine factors) are not ported, and a tet operator
@@ -38,7 +43,7 @@ import torch
 
 from ..fem.build import basis_for, restriction_for
 from ..fem.coefficient import eval_coeff
-from ..fem.fespace import FESpace, element_node_coords
+from ..fem.fespace import element_node_coords
 from ..fem.geom_factors import compute_geometric_factors
 from ..fem.quadinterp import eval_values_t
 from ..linalg.solvers import cg, default_dot
@@ -46,6 +51,18 @@ from ..ops import diffusion, lanemajor, mass
 from ..ops.bilinearform import BilinearForm
 from ..ops.ell import MultiELLPair
 from ..utils.config import config, real_t, resolve_device
+
+
+def _collapse_uniform(qd: torch.Tensor, dim: int) -> torch.Tensor:
+    """Element axis ``dim`` collapsed to size 1 when every element's qdata
+    equals the first element's to 1e-12 relative (a uniform lattice with
+    constant coefficients), as the JAX package's ``_collapse_uniform``."""
+    ref = qd.narrow(dim, 0, 1)
+    scale = float(ref.abs().max())
+    dev = float((qd - ref).abs().max())
+    if scale > 0 and dev <= 1e-12 * scale:
+        return ref.clone()
+    return qd
 
 
 class BioheatOperator:
@@ -65,7 +82,10 @@ class BioheatOperator:
     instead of packing the full matrices.  ``dot_mode`` "auto" takes plain
     dots in the working dtype when ``rel_tol`` ≥ 1e-6 and float64-accumulated
     ones otherwise.  ``elem_mask`` (ne,) zeroes inactive elements;
-    ``ess_dofs`` adds explicit essential dofs.  Each solve appends its CG
+    ``ess_dofs`` adds explicit essential dofs.  ``collapse_uniform_qdata``
+    keeps one element's qdata when every element's is equal to 1e-12
+    relative (after the diagonals, before the apply is chosen, as in the JAX
+    package); ``collapsed`` says whether it did.  Each solve appends its CG
     iteration count to ``cg_iterations``.  ``assembled_apply`` "ell"
     applies the stage operator and the residual through the assembled
     sliced-ELL pair; ``setup_seconds`` then splits the setup time into the
@@ -75,7 +95,7 @@ class BioheatOperator:
 
     def __init__(
         self,
-        fes: FESpace,
+        fes,
         *,
         rho_c=3.6e6,
         k=0.54,
@@ -94,6 +114,7 @@ class BioheatOperator:
         dot_mode: str = "auto",
         cg_variant: str = "classic",
         transposed_apply: bool = True,
+        collapse_uniform_qdata: bool = False,
         assembled_apply: str = "off",
         arrays: Optional[dict] = None,
     ):
@@ -112,6 +133,7 @@ class BioheatOperator:
         self.fused_setup, self.theta_form = fused_setup, theta_form
         self.dot_mode = dot_mode
         self.transposed_apply = transposed_apply
+        self.collapsed = False
         self.cg_iterations = []
         self.setup_seconds = {}
 
@@ -130,6 +152,8 @@ class BioheatOperator:
             self._assemble(exact_theta)
             self._set_essential()
             self._diagonals()
+            if collapse_uniform_qdata:
+                self._collapse()
             self.setup_seconds["pa"] = self._elapsed(t0)
             if assembled_apply == "ell":
                 self._ell = self._build_ell_pair()
@@ -195,6 +219,12 @@ class BioheatOperator:
         self.Mrc_diag = restr.mult_transpose(mass.diagonal(db, self.Mrc_qd))
         self.A_diag = restr.mult_transpose(
             diffusion.diagonal(db, self.K_qd) + mass.diagonal(db, self.Mw_qd))
+
+    def _collapse(self):
+        self.Mrc_qd = _collapse_uniform(self.Mrc_qd, 0)
+        self.Mw_qd = _collapse_uniform(self.Mw_qd, 0)
+        self.K_qd = _collapse_uniform(self.K_qd, 1)
+        self.collapsed = self.K_qd.shape[1] < self.fes.mesh.ne
 
     def _build_ell_pair(self):
         """FULL assembly of M_ρc and A = K + M_ω (as the JAX package's
@@ -270,6 +300,7 @@ class BioheatOperator:
             return
         self.Mrc_qd, self.Mw_qd, self.K_qd = (
             self._tensor(arrays[n]) for n in ("Mrc_qd", "Mw_qd", "K_qd"))
+        self.collapsed = self.K_qd.shape[1] < self.fes.mesh.ne
         if self.transposed_apply:
             self._lane = lanemajor.lane_basis(self.db)
             self._qkT = lanemajor.diffusion_qT(self.K_qd)
@@ -350,7 +381,7 @@ class BioheatOperator:
         return self._zero_ess(k)
 
 
-def from_jax_arrays(fes: FESpace, arrays: dict, **params) -> BioheatOperator:
+def from_jax_arrays(fes, arrays: dict, **params) -> BioheatOperator:
     """A port operator over the JAX operator's assembled arrays.
 
     ``arrays`` holds numpy copies of the JAX ``big_arrays(op)`` entries
@@ -358,8 +389,12 @@ def from_jax_arrays(fes: FESpace, arrays: dict, **params) -> BioheatOperator:
     the assembled CSR pair under the keys of the JAX operator's ELL cache
     (``Md``/``Mi``/``Mp`` for M_ρc, ``Ad``/``Ai``/``Ap`` for K + M_ω), the
     qdata ``Mrc_qd``/``Mw_qd``/``K_qd``, or the affine factors
-    ``_dm``/``_dw``/``_dk``; optionally with the JAX space's
-    ``gather_map``, which must equal ``fes.gather_map``.  ``b_const`` is
+    ``_dm``/``_dw``/``_dk``, each as the JAX operator holds it (qdata
+    collapsed to one element, (1, nq) and (6, 1, nq), broadcasts); optionally
+    with the JAX space's ``gather_map``, which must equal
+    ``fes.gather_map``.  ``fes`` is an ``FESpace`` or a
+    ``CartesianFESpace`` (then the applies take its structured
+    restriction).  ``b_const`` is
     taken as is (already in θ form when the JAX operator was).  ``params``
     are the constructor's keyword arguments (``rel_tol``, ``dtype``,
     ``device``, ...).  The state θ needs no conversion beyond

@@ -1,9 +1,11 @@
 """Diffusion integrator, partial assembly (counterpart of
 ``cardiac_ablation_ecm2_tpu/ops/diffusion.py``, 3D, scalar coefficients).
 
-Per quadrature point ``D = (w/detJ) · adj(J) · c · adj(J)ᵀ``; the apply is
-the sum-factorized ``Gᵀ (D ∘ (G u))``.  Packed symmetric qdata is
-(6, ne, nq) in the order [D00, D11, D22, D01, D02, D12].
+Per quadrature point ``D = (w/detJ) · adj(J) · c · adj(J)ᵀ``; the apply
+``Gᵀ (D ∘ (G u))`` is ``ops/fused_diffusion.diffusion_apply`` (the
+hand-written kernel on the card, the einsum chain on the CPU), re-exported
+here as ``apply``.  Packed symmetric qdata is (6, ne, nq) in the order
+[D00, D11, D22, D01, D02, D12].
 """
 
 from __future__ import annotations
@@ -11,12 +13,8 @@ from __future__ import annotations
 import torch
 
 from ..fem.geom_factors import GeometricFactors, adjugate
-from ..fem.quadinterp import (
-    DeviceBasis,
-    contract_q_to_e,
-    eval_grad,
-    eval_grad_t,
-)
+from ..fem.quadinterp import DeviceBasis, contract_q_to_e
+from .fused_diffusion import diffusion_apply as apply  # noqa: F401
 
 #: packed index of each (a, b) component
 _PIDX = {(0, 0): 0, (1, 1): 1, (2, 2): 2, (0, 1): 3, (1, 0): 3,
@@ -59,20 +57,6 @@ def pack_sym(D: torch.Tensor) -> torch.Tensor:
         [D[..., 0, 0], D[..., 1, 1], D[..., 2, 2],
          D[..., 0, 1], D[..., 0, 2], D[..., 1, 2]], dim=0
     )
-
-
-def _apply_packed(qd: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Packed symmetric D·g; qd (6, ne, nq), g (ne, nq, 3)."""
-    gx, gy, gz = g[..., 0], g[..., 1], g[..., 2]
-    Dx = qd[0] * gx + qd[3] * gy + qd[4] * gz
-    Dy = qd[3] * gx + qd[1] * gy + qd[5] * gz
-    Dz = qd[4] * gx + qd[5] * gy + qd[2] * gz
-    return torch.stack([Dx, Dy, Dz], dim=-1)
-
-
-def apply(db: DeviceBasis, qdata: torch.Tensor, u_e: torch.Tensor) -> torch.Tensor:
-    """(ne, nd) → (ne, nd): Gᵀ (D · (G u)) with packed qdata (6, ne, nq)."""
-    return eval_grad_t(db, _apply_packed(qdata, eval_grad(db, u_e)))
 
 
 def diagonal(db: DeviceBasis, qdata: torch.Tensor) -> torch.Tensor:

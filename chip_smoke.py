@@ -7,9 +7,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 0. Device: a CUDA device must be visible; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
-1. Build: the host setup library (g++) and the two CUDA kernels, gather-sum
-   and sliced-ELL SpMV (one nvcc each, ``sm_90a``, started together), from
-   the sources in this checkout.
+1. Build: the host setup library (g++) and the three CUDA kernels,
+   gather-sum, sliced-ELL SpMV and fused diffusion apply (one nvcc each,
+   ``sm_90a``, started together), from the sources in this checkout.
 2. Kernel against its plain PyTorch version on the card: random planes
    with sentinels (J = 1 and 8, float32 and float64), then the restriction
    planes of the 995,336-hex mesh in all four layouts.  All must be bitwise
@@ -25,7 +25,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    warm-up step and two timed steps, the run MFEM's reference program timed
    (``tools/mfem_bioheat_bench.cpp``, ``bench_baseline.json``).  θ_max must
    lie within 2e-3 relative of MFEM's 1.21339844, CG iterations per solve
-   within 16 ± 2, and the gather kernel must have launched.
+   within 16 ± 2, and the gather kernel and the fused diffusion kernel (the
+   element-major residual) must have launched; after the run, the fused
+   kernel is held to its plain version on this operator's own diffusion
+   qdata (ne = 995,336, a last tile of 8 elements) as in [8].
 5. Tet kernels against their plain versions on the card, at the shapes of
    the 956,820-tet mesh (n=66): the gather kernel on its E→L planes (up to
    46 multiplicity planes, float32 and float64, bitwise equal); the ELL
@@ -48,6 +51,35 @@ Phases, in order; any failure raises and the exit code is non-zero:
    one warm-up and two timed steps, θ_max within 2e-3 relative of MFEM's
    1.19519539, CG iterations per solve within 15% of 39.78, and the ELL
    kernel must have launched.
+8. Fused diffusion kernel against its plain PyTorch version (the einsum
+   chain) on the card, within 1e-5·max|y| in float32 and 1e-12·max|y| in
+   float64: random inputs at ne = 4,099 for every (n1, nq1) it takes, in
+   both types; an unsupported shape must raise; the 48³ unit lattice at
+   order 2 and quad_extra 1 (the shape of
+   ``benchmarks/pallas_profile.py``); after [10], the masked n=126
+   operator's own diffusion qdata with a random E-vector in float32 and
+   float64 ([4] and [9] hold it the same way at their own shapes).  The float32 cases print the median CUDA-event time of the
+   kernel, of the plain version and of a cuBLAS composition (stacked
+   gradient matmul, packed-D product, transposed matmul; a yardstick only),
+   the bytes moved, GB/s and the bound.
+9. The 48³ lattice, ``bench.py``'s default (110,592 hexes, 912,673 dofs,
+   ``CartesianFESpace``, uniform-qdata collapse on, order 2, float32): host
+   and device setup seconds, one warm-up and two timed steps; the apply
+   branch (collapsed / affine) must be the JAX package's in float32, θ_max
+   within 2e-3 relative of the JAX package's float64 value and CG
+   iterations per solve within ±1 of its 5; after the run, the fused kernel
+   against its plain version on this operator's diffusion qdata (ne =
+   110,592, nq1 = 3) as in [8].  MFEM's 5.3171 s/step
+   (``bench_baseline.json``) is printed beside.
+10. The masked cardiac-hex lattice, ``BENCH_MESH=cardiac-hex
+   BENCH_STRUCTURED=1``: first n=10 in float64 on CUDA and on CPU tensors
+   (θ within 1e-10 relative, equal CG iterations); then n=126 in float32
+   (1,000,188 lattice hexes, 8,129,143 lattice dofs, 8,092,657 of them
+   active, MFEM's ndof): one warm-up and two timed steps, the
+   per-quadrature-point apply, θ_max within 2e-3 relative of MFEM's
+   1.21339844 (the carved problem is the same by construction), CG
+   iterations per solve within 16 ± 2, DOF/s on the active dofs, the fused
+   diffusion kernel launched and the gather kernel not at all.
 
 The last two lines of standard output are one JSON object describing the
 kernels and one JSON object with the device.
@@ -72,12 +104,25 @@ MFEM_TET32 = dict(theta_max=2.39986753, cg_iters=22.0, ne=108_941, ndof=150_037)
 # θ_max after three steps on tet n=32 from the JAX package, float64 on the
 # CPU, partial-assembly apply: ``python tests/test_torch_ell.py --n 32``
 JAX_TET32_THETA_MAX = 1.43921577
+# θ_max after three steps on the 48³ lattice from the JAX package, float64
+# on the CPU (collapsed qdata, affine apply; 5 CG iterations in every solve):
+# ``PYTHONPATH=. python tests/test_torch_cartesian.py --n 48``
+JAX_LATTICE48 = dict(theta_max=0.20514715, cg_per_solve=5.0)
+# the branch (collapsed, affine) JAX takes there in float32: neither, its
+# diffusion qdata deviate 4.6371e-05 from W ⊗ d (rtol 1e-5):
+# ``PYTHONPATH=. python tests/test_torch_cartesian.py --n 48 --dtype float32``
+JAX_LATTICE48_F32_BRANCH = (False, False)
+MFEM_LATTICE48_S_STEP = 5.3171   # bench_baseline.json, n=48, order 2
+# the masked n=126 lattice: hexes, lattice dofs, active dofs (MFEM's ndof)
+MASKED126 = (1_000_188, 8_129_143, 8_092_657)
 SETTINGS = dict(rho_c=3.6e6, k=0.54, w_cb=2e4, T_a=37.0,
                 ess_bdr=[1, 2, 3, 4, 5, 6], rel_tol=1e-5, max_iter=300,
                 fused_setup=True, theta_form=True, dot_mode="auto",
                 cg_variant="classic")
 GAMMA = 0.25 * 0.435866521508458999416019   # dt · a_ii of SDIRK33
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
+# non-tensor-core peaks, H100 SXM data sheet
+FLOPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 KERNELS = {
     "gather_sum": dict(
         source="cardiac_ablation_ecm2_tpu_torch/csrc/gather_sum.cu",
@@ -85,6 +130,9 @@ KERNELS = {
     "ell_spmv": dict(
         source="cardiac_ablation_ecm2_tpu_torch/csrc/ell_spmv.cu",
         replaces="cardiac_ablation_ecm2_tpu/ops/ell.py:118"),
+    "fused_diffusion": dict(
+        source="cardiac_ablation_ecm2_tpu_torch/csrc/fused_diffusion.cu",
+        replaces="cardiac_ablation_ecm2_tpu/ops/pallas_kernels.py:101"),
 }
 
 
@@ -97,6 +145,12 @@ def source(x):
     """Gaussian volumetric source at the electrode tip (bench.py)."""
     r2 = sum((x[..., i] - L / 2) ** 2 for i in range(3))
     return 2e7 * torch.exp(-r2 / (2 * 0.003 ** 2))
+
+
+def lattice_source(x):
+    """bench.py's broad source on the lattice: amplitude 1e6, width² (L/8)²."""
+    r2 = sum((x[..., i] - L / 2) ** 2 for i in range(3))
+    return 1e6 * torch.exp(-r2 / (L / 8) ** 2)
 
 
 def time_ms(fn, reps=20):
@@ -132,13 +186,15 @@ def phase_device():
 def phase_build():
     from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
     from cardiac_ablation_ecm2_tpu_torch.ops import ell
+    from cardiac_ablation_ecm2_tpu_torch.ops import fused_diffusion as fd
     from cardiac_ablation_ecm2_tpu_torch.utils import native
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        for f in [pool.submit(b) for b in (native.lib, bg.build, ell.build)]:
+    builds = (native.lib, bg.build, ell.build, fd.build)
+    with ThreadPoolExecutor(len(builds)) as pool:
+        for f in [pool.submit(b) for b in builds]:
             f.result()
-    print(f"[1] build: host library and two CUDA kernels in parallel, "
+    print(f"[1] build: host library and three CUDA kernels in parallel, "
           f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -233,7 +289,7 @@ def small_cuda_vs_cpu(label, fes, dev, **kw):
     from cardiac_ablation_ecm2_tpu_torch.models.bioheat import BioheatOperator
 
     ops = [BioheatOperator(fes, q_met=source, dtype="float64", device=d,
-                           **SETTINGS, **kw) for d in (dev, "cpu")]
+                           **dict(SETTINGS, **kw)) for d in (dev, "cpu")]
     (Tg, Tg2), (Tc, Tc2) = ([run_steps(op, 3).cpu() for _ in range(2)]
                             for op in ops)
     rel = float((Tg - Tc).abs().max() / Tc.abs().max())
@@ -281,20 +337,24 @@ def start_main_path():
     a main path is driven."""
     from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
     from cardiac_ablation_ecm2_tpu_torch.ops import ell
+    from cardiac_ablation_ecm2_tpu_torch.ops import fused_diffusion as fd
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     bg.gather_sum.launches = 0
     ell.ell_spmv.launches = 0
+    fd.diffusion_apply.launches = 0
 
 
 def main_path_launches():
     from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
     from cardiac_ablation_ecm2_tpu_torch.ops import ell
+    from cardiac_ablation_ecm2_tpu_torch.ops import fused_diffusion as fd
 
     return {"gather_sum": bg.gather_sum.launches,
-            "ell_spmv": ell.ell_spmv.launches}
+            "ell_spmv": ell.ell_spmv.launches,
+            "fused_diffusion": fd.diffusion_apply.launches}
 
 
 def report_run(tag, op, T, theta_ref, ref_name="MFEM"):
@@ -314,7 +374,7 @@ def report_run(tag, op, T, theta_ref, ref_name="MFEM"):
 
 def phase_main(dev, mesh, fes, host_s):
     """Setup and three steps of the benchmark configuration in float32;
-    returns the gather kernel's launch count in this run."""
+    returns the launch counts of this run."""
     from cardiac_ablation_ecm2_tpu_torch.models import bioheat
 
     start_main_path()
@@ -326,7 +386,7 @@ def phase_main(dev, mesh, fes, host_s):
     check(op._lane is not None and op._aff is None,
           "warped hexes take the per-quadrature-point lane-major path")
     T, s_step, host_step = timed_steps(op)
-    launches = main_path_launches()["gather_sum"]
+    launches = main_path_launches()
     peak = torch.cuda.max_memory_allocated()
     print(f"[4] cardiac hex n=126 order 2 f32: {mesh.ne} elements, "
           f"{fes.ndof} dofs")
@@ -335,11 +395,15 @@ def phase_main(dev, mesh, fes, host_s):
     print(f"[4] s/step {s_step:.6f} (CUDA events; host clock {host_step:.6f}), "
           f"{fes.ndof / s_step:.1f} DOF/s; MFEM CPU 145.408 s/step")
     _, per_solve, rel = report_run("[4]", op, T, MFEM_THETA_MAX)
-    print(f"[4] gather-kernel launches {launches}, "
+    print(f"[4] gather-kernel launches {launches['gather_sum']}, fused "
+          f"diffusion launches {launches['fused_diffusion']}, "
           f"max_memory_allocated {peak / 2**30:.3f} GiB")
     check(rel <= 2e-3, "theta_max within 2e-3 of MFEM")
     check(abs(per_solve - MFEM_CG_ITERS) <= 2, "CG iterations within 16 ± 2")
-    check(launches > 0, "the main path launched the gather kernel")
+    check(launches["gather_sum"] > 0, "the main path launched the gather kernel")
+    check(launches["fused_diffusion"] > 0,
+          "the main path's residual launched the fused diffusion kernel")
+    check_operator_diffusion("[4]", "hex n=126 K_qd", op)
     return launches
 
 
@@ -491,11 +555,276 @@ def phase_tet_main(dev, mesh, fes, host_s):
     return launches
 
 
+def diffusion_bound(ne, n1, nq1, dtype):
+    """Least bytes of one fused diffusion apply (e read, y written, the six
+    qdata planes read, each once), its operations (the sum-factorized chain:
+    six 1D passes and the packed-D product) and the bound in ms, the larger
+    of bytes over the HBM rate and operations over the type's peak."""
+    nd, nq = n1 ** 3, nq1 ** 3
+    s1, s2 = n1 * n1 * nq1, n1 * nq1 * nq1
+    elsize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = ne * (2 * nd + 6 * nq) * elsize
+    flops = ne * 2 * (2 * s1 * n1 + 3 * s2 * n1 + 3 * nq * n1 + 3 * s2 * nq1
+                      + 3 * s1 * nq1 + 2 * nd * nq1) + ne * nq * 15
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FLOPS_PER_S[dtype] * 1e3
+    return nbytes, flops, max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                                else "operations")
+
+
+def cublas_composition(db, qd, e):
+    """Gᵀ(D·(G e)) as three steps of library calls, a yardstick only: one
+    (ne, nd) @ (nd, 3nq) matmul on the stacked Kronecker gradient matrix,
+    the packed-D product, one (ne, 3nq) @ (3nq, nd) matmul."""
+    from cardiac_ablation_ecm2_tpu_torch.ops import lanemajor
+
+    S = torch.cat(lanemajor.lane_basis(db).G, dim=0)      # (3nq, nd)
+    ST = S.T.contiguous()
+    nq = S.shape[0] // 3
+
+    def run():
+        t = e @ ST
+        gx, gy, gz = t[:, :nq], t[:, nq:2 * nq], t[:, 2 * nq:]
+        D = torch.cat([qd[0] * gx + qd[3] * gy + qd[4] * gz,
+                       qd[3] * gx + qd[1] * gy + qd[5] * gz,
+                       qd[4] * gx + qd[5] * gy + qd[2] * gz], dim=1)
+        return D @ S
+
+    return run
+
+
+def check_diffusion(label, db, qd, e, timed=False, tag="[8]"):
+    """The fused kernel against its plain version: within 1e-5·max|y| in
+    float32, 1e-12·max|y| in float64.  Returns (max abs error, and with
+    ``timed`` the kernel, plain, composition and bound times)."""
+    from cardiac_ablation_ecm2_tpu_torch.ops import fused_diffusion as fd
+
+    tol = 1e-5 if e.dtype == torch.float32 else 1e-12
+    y = fd.diffusion_apply(db, qd, e)
+    ref = fd.diffusion_apply_plain(db, qd, e)
+    torch.cuda.synchronize()
+    err = float((y - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    msg = (f"{tag} {label}: ne={e.shape[0]} n1={db.n1d} nq1={db.nq1d} "
+           f"{str(e.dtype)[6:]}, kernel vs plain {rel:.2e} of max|y|")
+    check(rel <= tol, f"{label}: fused diffusion within {tol:g} of plain")
+    if not timed:
+        print(msg)
+        return err, None
+    ms = time_ms(lambda: fd.diffusion_apply(db, qd, e))
+    plain_ms = time_ms(lambda: fd.diffusion_apply_plain(db, qd, e))
+    comp = cublas_composition(db, qd, e)
+    comp_err = float((comp() - ref).abs().max()) / float(ref.abs().max())
+    lib_ms = time_ms(comp)
+    nbytes, flops, bound, by = diffusion_bound(e.shape[0], db.n1d, db.nq1d,
+                                               e.dtype)
+    print(msg + f"; kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s, "
+          f"{flops / ms / 1e6:.1f} GFLOP/s), plain {plain_ms:.4f} ms, cuBLAS "
+          f"composition {lib_ms:.4f} ms (rel diff {comp_err:.1e}); "
+          f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP; bound "
+          f"{bound:.4f} ms ({by})")
+    return err, dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=bound, bound_by=by)
+
+
+def phase_diffusion_kernel(dev):
+    """[8] before the lattice paths: random inputs at every shape the kernel
+    takes, a shape it does not, and pallas_profile.py's 48³ shape."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.basis import make_dof_to_quad
+    from cardiac_ablation_ecm2_tpu_torch.fem.cartesian import CartesianFESpace
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import element_node_coords
+    from cardiac_ablation_ecm2_tpu_torch.fem.geom_factors import (
+        compute_geometric_factors,
+    )
+    from cardiac_ablation_ecm2_tpu_torch.fem.geometry import Geometry
+    from cardiac_ablation_ecm2_tpu_torch.fem.quadinterp import device_basis
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2_tpu_torch.ops import diffusion
+    from cardiac_ablation_ecm2_tpu_torch.ops import fused_diffusion as fd
+
+    rng = np.random.default_rng(8)
+    ne = 4_099
+    for n1, nq1 in fd.SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            db = device_basis(make_dof_to_quad(Geometry.CUBE, n1 - 1, nq1),
+                              dtype, dev)
+            e = torch.as_tensor(rng.standard_normal((ne, n1 ** 3)),
+                                dtype=dtype, device=dev)
+            qd = torch.as_tensor(rng.standard_normal((6, ne, nq1 ** 3)),
+                                 dtype=dtype, device=dev)
+            check_diffusion("random", db, qd, e)
+    db = device_basis(make_dof_to_quad(Geometry.CUBE, 5, 6), torch.float32, dev)
+    try:
+        fd.diffusion_apply(db, torch.zeros(6, 3, 216, device=dev),
+                           torch.zeros(3, 216, device=dev))
+    except ValueError as ex:
+        print(f"[8] unsupported shape raises: {ex}")
+    else:
+        check(False, "fused diffusion raises on order 5")
+    mesh = make_cartesian_3d(48, 48, 48)
+    fes = CartesianFESpace(mesh, 2, (48, 48, 48))
+    d2q = fes.dof_to_quad(4)                    # quad_extra 1: nq1 = 4
+    gf = compute_geometric_factors(element_node_coords(mesh, 2), d2q,
+                                   torch.float32, dev)
+    qd = diffusion.setup_packed(gf)
+    db = device_basis(d2q, torch.float32, dev)
+    e = torch.as_tensor(rng.random((mesh.ne, 27)), dtype=torch.float32,
+                        device=dev)
+    check_diffusion("48^3 unit lattice, pallas_profile.py's shape", db, qd, e,
+                    timed=True)
+
+
+def check_operator_diffusion(tag, label, op, timed=False):
+    """The fused kernel against its plain version on a main path's own
+    basis and diffusion qdata (the residual's shapes) with a random
+    E-vector, in float32 and float64; run after that path's launch counts
+    were read.  Returns the max abs error and, with ``timed``, the float32
+    numbers of the kernels line."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import basis_for
+
+    gen = torch.Generator(device=op.device).manual_seed(8)
+    e = torch.randn(op.fes.mesh.ne, op.db.n1d ** 3, generator=gen,
+                    device=op.device)
+    err32, numbers = check_diffusion(label, op.db, op.K_qd, e, timed=timed,
+                                     tag=tag)
+    db64 = basis_for(op.fes, torch.float64, op.device)
+    err64, _ = check_diffusion(label, db64, op.K_qd.double(), e.double(),
+                               tag=tag)
+    return max(err32, err64), numbers
+
+
+def separable_deviation(op):
+    """max |q/W − mean_q(q/W)| / max |mean_q(q/W)| of the operator's
+    diffusion qdata: what the affine detector holds to rtol 1e-5."""
+    r = op._qkT / op.db.W[:, None]
+    d = r.mean(dim=-2, keepdim=True)
+    return float((r - d).abs().max() / d.abs().max())
+
+
+def phase_lattice48(dev):
+    """[9] bench.py's default: setup and three float32 steps on the 48³
+    lattice; returns the launch counts of this run."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.cartesian import CartesianFESpace
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2_tpu_torch.models import bioheat
+
+    t0 = time.perf_counter()
+    mesh = make_cartesian_3d(48, 48, 48, L, L, L)
+    t1 = time.perf_counter()
+    fes = CartesianFESpace(mesh, 2, (48, 48, 48), (L, L, L))
+    t2 = time.perf_counter()
+    check((mesh.ne, fes.ndof) == (110_592, 912_673), "48^3 lattice size")
+    start_main_path()
+    t3 = time.perf_counter()
+    op = bioheat.BioheatOperator(fes, q_met=lattice_source, dtype="float32",
+                                 device=dev, collapse_uniform_qdata=True,
+                                 **SETTINGS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t3
+    branch = (op.collapsed, op._aff is not None)
+    T, s_step, host_step = timed_steps(op)
+    launches = main_path_launches()
+    peak = torch.cuda.max_memory_allocated()
+    dev_txt = ("-" if op.collapsed or op._aff is not None
+               else f"{separable_deviation(op):.4e}")
+    print(f"[9] 48^3 lattice order 2 f32: {mesh.ne} hexes, {fes.ndof} dofs; "
+          f"branch collapsed {branch[0]}, affine {branch[1]} (JAX float32: "
+          f"{JAX_LATTICE48_F32_BRANCH}); diffusion qdata separable deviation "
+          f"{dev_txt}")
+    print(f"[9] host setup: mesh {t1 - t0:.2f} s, CartesianFESpace "
+          f"{t2 - t1:.2f} s; device setup (operator) {setup_s:.2f} s")
+    print(f"[9] s/step {s_step:.6f} (CUDA events; host clock {host_step:.6f}), "
+          f"{fes.ndof / s_step:.1f} DOF/s; MFEM CPU {MFEM_LATTICE48_S_STEP} "
+          f"s/step")
+    _, per_solve, rel = report_run("[9]", op, T, JAX_LATTICE48["theta_max"],
+                                   "the JAX package (f64, CPU)")
+    print(f"[9] fused diffusion launches {launches['fused_diffusion']}, gather "
+          f"launches {launches['gather_sum']}, max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB")
+    check(branch == JAX_LATTICE48_F32_BRANCH, "48^3 takes JAX's float32 branch")
+    check(rel <= 2e-3, "48^3 theta_max within 2e-3 of the JAX package's")
+    check(abs(per_solve - JAX_LATTICE48["cg_per_solve"]) <= 1,
+          "48^3 CG iterations per solve within 1 of JAX's")
+    check(launches["fused_diffusion"] > 0 and launches["gather_sum"] == 0,
+          "the 48^3 residual launched the fused diffusion kernel, and no "
+          "gather ran (structured restriction)")
+    check_operator_diffusion("[9]", "48^3 lattice K_qd", op)
+    return launches
+
+
+def masked_space(n):
+    """The masked cardiac-hex lattice n: mesh, CartesianFESpace, the
+    operator's mask arguments and the active-dof count, with host seconds."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.cartesian import CartesianFESpace
+    from cardiac_ablation_ecm2_tpu_torch.fem.masked_lattice import (
+        masked_lattice_active_count,
+        masked_lattice_essential,
+    )
+    from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_lattice
+
+    t0 = time.perf_counter()
+    mesh, keep, ns = make_cardiac_hex_lattice(n, lengths=(L, L, L / 2),
+                                              electrode_radius=0.004)
+    t1 = time.perf_counter()
+    fes = CartesianFESpace(mesh, 2, ns, (L, L, L / 2))
+    kw = dict(ess_bdr=None, elem_mask=keep.astype(np.float32),
+              ess_dofs=masked_lattice_essential(ns, 2, keep))
+    active = masked_lattice_active_count(ns, 2, keep)
+    return mesh, fes, kw, active, (t1 - t0, time.perf_counter() - t1)
+
+
+def phase_masked(dev):
+    """[10] ``BENCH_MESH=cardiac-hex BENCH_STRUCTURED=1``: n=10 in float64
+    on CUDA against the CPU, then setup and three float32 steps at n=126;
+    returns the operator and the launch counts of the n=126 run."""
+    from cardiac_ablation_ecm2_tpu_torch.models import bioheat
+
+    _, fes, kw, _, _ = masked_space(10)
+    small_cuda_vs_cpu("[10] masked lattice n=10", fes, dev, **kw)
+    mesh, fes, kw, active, host_s = masked_space(126)
+    check((mesh.ne, fes.ndof, active) == MASKED126,
+          "masked n=126: 1,000,188 hexes, 8,129,143 lattice dofs, 8,092,657 "
+          "active (MFEM's ndof)")
+    start_main_path()
+    t0 = time.perf_counter()
+    op = bioheat.BioheatOperator(fes, q_met=source, dtype="float32", device=dev,
+                                 **dict(SETTINGS, **kw))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(op._lane is not None and op._aff is None,
+          "the warped lattice takes the per-quadrature-point lane-major path")
+    T, s_step, host_step = timed_steps(op)
+    launches = main_path_launches()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[10] masked cardiac-hex lattice n=126 order 2 f32: {mesh.ne} "
+          f"lattice hexes ({int(kw['elem_mask'].sum())} kept), {fes.ndof} "
+          f"lattice dofs, {active} active, {len(kw['ess_dofs'])} pinned")
+    print(f"[10] host setup: lattice {host_s[0]:.2f} s, CartesianFESpace and "
+          f"masks {host_s[1]:.2f} s; device setup (operator) {setup_s:.2f} s")
+    print(f"[10] s/step {s_step:.6f} (CUDA events; host clock "
+          f"{host_step:.6f}), {active / s_step:.1f} DOF/s on the active dofs; "
+          f"MFEM CPU 145.408 s/step (carved mesh)")
+    _, per_solve, rel = report_run("[10]", op, T, MFEM_THETA_MAX)
+    print(f"[10] fused diffusion launches {launches['fused_diffusion']} "
+          f"(3 per step and 1 in setup), gather launches "
+          f"{launches['gather_sum']}, max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB")
+    check(rel <= 2e-3, "masked theta_max within 2e-3 of MFEM")
+    check(abs(per_solve - MFEM_CG_ITERS) <= 2,
+          "masked CG iterations within 16 ± 2")
+    check(launches["fused_diffusion"] > 0,
+          "the masked main path launched the fused diffusion kernel")
+    check(launches["gather_sum"] == 0,
+          "the masked main path launched no gather (structured restriction)")
+    return op, launches
+
+
 def main():
     from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
     from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
     from cardiac_ablation_ecm2_tpu_torch.utils.config import configure
 
+    t_start = time.perf_counter()
     dev = phase_device()
     configure(quad_extra=0)          # bench.py's setting: nq1d = p + 1
     phase_build()
@@ -520,13 +849,23 @@ def main():
     ell_numbers = phase_ell_kernel(dev, fes)
     phase_tet_small(dev)
     tet_launches = phase_tet_main(dev, mesh, fes, host_s)
+    del mesh, fes
 
+    phase_diffusion_kernel(dev)
+    phase_lattice48(dev)
+    op, masked_launches = phase_masked(dev)
+    err, fd_numbers = check_operator_diffusion("[8]", "masked n=126 K_qd", op,
+                                               timed=True)
+    fd_numbers["max_abs_err"] = err
+    del op
+
+    print(f"total {time.perf_counter() - t_start:.1f} s")
     # gather_sum: the restriction round trip of one CG apply on the hex
     # main path, L->E and E->L in the (nd, ne) layout
     trip = [kc.round_trip[k] for k in ("L->E (nd,ne)", "E->L (nd,ne)")]
     print(json.dumps({"kernels": [
         dict(name="gather_sum", route="cuda", **KERNELS["gather_sum"],
-             launches=hex_launches, max_abs_err=kc.max_abs_err,
+             launches=hex_launches["gather_sum"], max_abs_err=kc.max_abs_err,
              ms=sum(t[0] for t in trip), plain_ms=sum(t[1] for t in trip),
              bound_ms=sum(t[2] for t in trip), bound_by="bytes",
              library_ms=sum(t[3] for t in trip)),
@@ -535,6 +874,8 @@ def main():
              max_abs_err=ell_numbers["max_abs_err"], ms=ell_numbers["ms"],
              plain_ms=ell_numbers["plain_ms"], bound_ms=ell_numbers["bound_ms"],
              bound_by="bytes", library_ms=ell_numbers["library_ms"]),
+        dict(name="fused_diffusion", route="cuda", **KERNELS["fused_diffusion"],
+             launches=masked_launches["fused_diffusion"], **fd_numbers),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

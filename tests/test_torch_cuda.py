@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels on the card: the gather-sum and the
-sliced-ELL SpMV bitwise equal to their plain PyTorch versions, and the
-restriction and the tet ELL operator on CUDA equal to the ones on the CPU.
+sliced-ELL SpMV bitwise equal to their plain PyTorch versions, the fused
+diffusion apply within rounding of its plain version at every shape it
+takes (and raising on one it does not), and the restriction, the tet ELL
+operator and the masked cardiac-hex lattice on CUDA equal to the CPU.
 Needs an NVIDIA GPU and nvcc; skips without a GPU.  This file imports no
 JAX, so it also runs where JAX is not installed:
 
@@ -12,16 +14,23 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from cardiac_ablation_ecm2_tpu_torch.fem.basis import make_dof_to_quad
+from cardiac_ablation_ecm2_tpu_torch.fem.cartesian import CartesianFESpace
 from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+from cardiac_ablation_ecm2_tpu_torch.fem.geometry import Geometry
+from cardiac_ablation_ecm2_tpu_torch.fem.masked_lattice import masked_lattice_essential
+from cardiac_ablation_ecm2_tpu_torch.fem.quadinterp import device_basis
 from cardiac_ablation_ecm2_tpu_torch.fem.restriction import ElementRestriction
 from cardiac_ablation_ecm2_tpu_torch.linalg import ode
 from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import (
+    make_cardiac_hex_lattice,
     make_cardiac_hex_mesh,
     make_cardiac_tet_mesh,
 )
 from cardiac_ablation_ecm2_tpu_torch.models import bioheat
 from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
 from cardiac_ablation_ecm2_tpu_torch.ops import ell
+from cardiac_ablation_ecm2_tpu_torch.ops import fused_diffusion as fd
 from cardiac_ablation_ecm2_tpu_torch.utils.config import config, configure
 
 pytestmark = pytest.mark.cuda
@@ -124,6 +133,70 @@ def test_tet_ell_operator_cuda_equals_cpu(cuda):
             T, _t = step(T, 0.0, 0.25)
         Ts.append(T.cpu())
     assert ell.ell_spmv.launches > before
+    assert ops[0].cg_iterations == ops[1].cg_iterations
+    rel = float((Ts[0] - Ts[1]).abs().max() / Ts[1].abs().max())
+    assert rel <= 1e-10, rel
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("n1,nq1", fd.SHAPES)
+def test_fused_diffusion_matches_plain(cuda, n1, nq1, dtype, tol):
+    """Random E-vector and qdata at an odd ne (a short last tile), and the
+    collapsed (6, 1, nq) qdata; tolerance relative to max|y| (the kernel and
+    the einsums sum in different orders)."""
+    rng = np.random.default_rng(10 * n1 + nq1)
+    db = device_basis(make_dof_to_quad(Geometry.CUBE, n1 - 1, nq1), dtype, cuda)
+    ne = 1_009
+    e = torch.as_tensor(rng.standard_normal((ne, n1 ** 3)), dtype=dtype, device=cuda)
+    q = torch.as_tensor(rng.standard_normal((6, ne, nq1 ** 3)), dtype=dtype,
+                        device=cuda)
+    for qd in (q, q[:, :1].contiguous()):
+        before = fd.diffusion_apply.launches
+        y = fd.diffusion_apply(db, qd, e)
+        torch.cuda.synchronize()
+        assert fd.diffusion_apply.launches == before + 1
+        ref = fd.diffusion_apply_plain(db, qd, e)
+        err = float((y - ref).abs().max() / ref.abs().max())
+        assert err <= tol, err
+
+
+def test_fused_diffusion_rejects_unsupported_shape(cuda):
+    db = device_basis(make_dof_to_quad(Geometry.CUBE, 5, 6), torch.float32, cuda)
+    e = torch.zeros(7, 216, device=cuda)
+    q = torch.zeros(6, 7, 216, device=cuda)
+    before = fd.diffusion_apply.launches
+    with pytest.raises(ValueError):
+        fd.diffusion_apply(db, q, e)
+    assert fd.diffusion_apply.launches == before
+
+
+def test_masked_lattice_cuda_equals_cpu(cuda):
+    """BENCH_MESH=cardiac-hex BENCH_STRUCTURED=1 at n=10 in float64: the
+    structured restriction and the fused diffusion kernel on the card
+    against the plain versions on the CPU."""
+    L = 0.04
+    mesh, keep, ns = make_cardiac_hex_lattice(10, lengths=(L, L, L / 2),
+                                              electrode_radius=0.004)
+    fes = CartesianFESpace(mesh, 2, ns, (L, L, L / 2))
+    old = config.quad_extra
+    configure(quad_extra=0)
+    try:
+        kw = dict(rho_c=3.6e6, k=0.54, w_cb=2e4, q_met=1e6, rel_tol=1e-5,
+                  max_iter=300, dtype="float64", fused_setup=True,
+                  theta_form=True, elem_mask=keep.astype(np.float64),
+                  ess_dofs=masked_lattice_essential(ns, 2, keep))
+        ops = [bioheat.BioheatOperator(fes, device=d, **kw) for d in (cuda, "cpu")]
+    finally:
+        configure(quad_extra=old)
+    before = fd.diffusion_apply.launches
+    Ts = []
+    for op in ops:
+        step = bioheat.make_stepper(op, ode.select("sdirk33"))
+        T = torch.zeros(fes.ndof, dtype=torch.float64, device=op.device)
+        for _ in range(2):
+            T, _t = step(T, 0.0, 0.25)
+        Ts.append(T.cpu())
+    assert fd.diffusion_apply.launches > before
     assert ops[0].cg_iterations == ops[1].cg_iterations
     rel = float((Ts[0] - Ts[1]).abs().max() / Ts[1].abs().max())
     assert rel <= 1e-10, rel
