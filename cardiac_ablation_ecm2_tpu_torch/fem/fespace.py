@@ -254,6 +254,20 @@ class FESpace:
         return make_dof_to_quad(self.mesh.geom, self.order,
                                 self.order + 1 + config.quad_extra)
 
+    def dof_to_quad(self, nq1d=None) -> DofToQuad:
+        if nq1d is None:
+            return self.d2q
+        return make_dof_to_quad(self.mesh.geom, self.order, nq1d)
+
+    @functools.cached_property
+    def dof_coords(self) -> np.ndarray:
+        """Nodal coordinates of every scalar L-dof, (ndof, sdim) float64:
+        the scatter of the element node coordinates."""
+        Xe = element_node_coords(self.mesh, self.order)
+        coords = np.zeros((self.ndof_scalar, self.mesh.sdim))
+        coords[self.gather_map.reshape(-1)] = Xe.reshape(-1, self.mesh.sdim)
+        return coords
+
     def essential_dofs(self, bdr_marker=None) -> np.ndarray:
         """Scalar L-dofs on the marked boundary attributes (sorted, unique);
         ``None`` marks every attribute."""

@@ -41,7 +41,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..fem.build import basis_for, restriction_for
+from ..fem.build import basis_for, geom_factors_for, restriction_for
 from ..fem.coefficient import eval_coeff
 from ..fem.fespace import element_node_coords
 from ..fem.geom_factors import compute_geometric_factors
@@ -71,7 +71,9 @@ class BioheatOperator:
     Physical parameters (SI): ``rho_c`` volumetric heat capacity, ``k``
     conductivity, ``w_cb`` perfusion ω_b·c_b, ``T_a`` arterial temperature,
     ``q_met`` volumetric source (scalar or callable of the (ne, nq, 3)
-    quadrature-point coordinates, written with torch operations).
+    quadrature-point coordinates, written with torch operations), ``q_rf``
+    the RF (Joule, SAR) source, an (ne, nq) Q-vector or a coefficient,
+    added to ``q_met``.
 
     ``theta_form`` solves for θ = T − T_a (boundary temperature T_a), which
     keeps float32 precision on the rise; on the ELL path its right-hand
@@ -102,6 +104,7 @@ class BioheatOperator:
         w_cb=0.0,
         T_a: float = 37.0,
         q_met=0.0,
+        q_rf=None,
         ess_bdr: Optional[Sequence[int]] = None,
         elem_mask=None,
         ess_dofs=None,
@@ -125,7 +128,7 @@ class BioheatOperator:
                              f"got {assembled_apply!r}")
         self.fes = fes
         self.rho_c, self.k, self.w_cb, self.T_a = rho_c, k, w_cb, T_a
-        self.q_met = q_met
+        self.q_met, self.q_rf = q_met, q_rf
         self.ess_bdr, self.elem_mask, self.ess_dofs = ess_bdr, elem_mask, ess_dofs
         self.rel_tol, self.max_iter = rel_tol, max_iter
         self.dtype = real_t(dtype)
@@ -176,11 +179,17 @@ class BioheatOperator:
         return torch.tensor(np.asarray(a), dtype=self.dtype, device=self.device)
 
     def _assemble(self, exact_theta=False):
-        """qdata, constant RHS M_ω T_a·1 + (Q_met, v), from node coordinates;
-        with ``exact_theta`` the θ-form RHS (Q_met, v) alone."""
+        """qdata, constant RHS M_ω T_a·1 + (Q_met + Q_rf, v); with
+        ``exact_theta`` the θ-form RHS (Q_met + Q_rf, v) alone.  The
+        geometric factors are the space's shared ones (``fem/build.py``),
+        except with ``fused_setup``, which the JAX package computes from the
+        node coordinates inside its setup and keeps nowhere."""
         fes = self.fes
-        X = element_node_coords(fes.mesh, fes.order)
-        gf = compute_geometric_factors(X, fes.d2q, self.dtype, self.device)
+        if self.fused_setup:
+            gf = compute_geometric_factors(element_node_coords(fes.mesh, fes.order),
+                                           fes.d2q, self.dtype, self.device)
+        else:
+            gf = geom_factors_for(fes, None, self.dtype, self.device)
         qm = mass.setup(gf, eval_coeff(self.rho_c, gf, self.dtype))
         qw = mass.setup(gf, eval_coeff(self.w_cb, gf, self.dtype))
         k_q = eval_coeff(self.k, gf, self.dtype)
@@ -189,6 +198,9 @@ class BioheatOperator:
         else:
             qk = diffusion.pack_sym(diffusion.setup(gf, k_q))
         src_q = eval_coeff(self.q_met, gf, self.dtype)
+        if self.q_rf is not None:
+            rf_q = eval_coeff(self.q_rf, gf, self.dtype)
+            src_q = rf_q if src_q is None else src_q + rf_q
         q = torch.zeros_like(qw) if exact_theta else qw * self.T_a
         if src_q is not None:
             q = q + gf.wdet * src_q
@@ -307,6 +319,27 @@ class BioheatOperator:
             self._qmT = self.Mrc_qd.T.contiguous()
             self._qwT = self.Mw_qd.T.contiguous()
 
+    def override(self, **kw) -> "BioheatOperator":
+        """Shallow copy with some fields (qdata, right-hand side, diagonals)
+        replaced, without rerunning the setup (the JAX package's
+        ``override``, ex16's ``SetParameters`` rebuild).  When ``K_qd``,
+        ``Mrc_qd`` or ``Mw_qd`` is replaced, the lane-major copies
+        (``_qkT``/``_qmT``/``_qwT``) are refreshed from it and the affine
+        factors are dropped, unless the caller replaces those too.  The
+        copy appends its CG counts to the same ``cg_iterations`` list."""
+        clone = object.__new__(type(self))
+        clone.__dict__ = {**self.__dict__, **kw}
+        if self._lane is not None and kw.keys() & {"K_qd", "Mrc_qd", "Mw_qd"}:
+            if "K_qd" in kw and "_qkT" not in kw:
+                clone._qkT = lanemajor.diffusion_qT(clone.K_qd)
+            if "Mrc_qd" in kw and "_qmT" not in kw:
+                clone._qmT = lanemajor.mass_qT(clone.Mrc_qd)
+            if "Mw_qd" in kw and "_qwT" not in kw:
+                clone._qwT = lanemajor.mass_qT(clone.Mw_qd)
+            if not kw.keys() & {"_dk", "_dm", "_dw"}:
+                clone._aff = None
+        return clone
+
     # -- applies -----------------------------------------------------------
     def _apply(self, qd_mass, qd_diff, v, gamma=None):
         """Element-major (qd_mass-mass + γ·diffusion) apply."""
@@ -395,10 +428,17 @@ def from_jax_arrays(fes, arrays: dict, **params) -> BioheatOperator:
     ``fes.gather_map``.  ``fes`` is an ``FESpace`` or a
     ``CartesianFESpace`` (then the applies take its structured
     restriction).  ``b_const`` is
-    taken as is (already in θ form when the JAX operator was).  ``params``
-    are the constructor's keyword arguments (``rel_tol``, ``dtype``,
-    ``device``, ...).  The state θ needs no conversion beyond
+    taken as is (already in θ form when the JAX operator was, and holding
+    (Q_rf, v) when it had an RF source).  ``params`` are the constructor's
+    keyword arguments (``rel_tol``, ``dtype``, ``device``, ...); the JAX
+    operator's SAR Q-vector, passed as ``q_rf`` (a numpy array), lands on
+    the operator's device as the constructor's ``q_rf`` (it is not added
+    to ``b_const`` again).  The state θ needs no conversion beyond
     ``torch.as_tensor``."""
+    if params.get("q_rf") is not None:
+        params["q_rf"] = torch.as_tensor(
+            np.asarray(params["q_rf"]), dtype=real_t(params.get("dtype")),
+            device=resolve_device(params.get("device")))
     return BioheatOperator(fes, arrays=arrays, **params)
 
 

@@ -1,7 +1,16 @@
-"""FULL assembly of domain mass and diffusion forms to a scipy CSR matrix
-(the ``assemble_matrix`` subset of ``BilinearForm`` in
+"""Domain mass and diffusion forms, partially or fully assembled (the
+``assemble`` and ``assemble_matrix`` subset of ``BilinearForm`` in
 ``cardiac_ablation_ecm2_tpu/ops/bilinearform.py``).
 
+PARTIAL assembly (``assemble``, hex spaces, generic or Cartesian) builds the
+qdata of every term and returns a matrix-free :class:`PAOperator`: the terms
+whose qdata separate as W ⊗ d (straight-sided hexes, constant coefficients)
+apply through reference matrices, the others through the lane-major
+per-point applies, all in one restriction round trip (``ops/lanemajor.py``,
+as the JAX package's ``_build_lane_group``).  Its diagonal goes through the
+element-major PA diagonals and the E→L sum.  Scalar coefficients only.
+
+FULL assembly (``assemble_matrix``, simplex spaces) goes to scipy CSR.
 The quadrature and precision are the JAX package's: the space's rule
 (``fes.d2q``), geometric factors in the configured dtype, element matrices
 contracted in float64 against the float64 basis, diffusion from the
@@ -15,26 +24,119 @@ ones the assembled-ELL path runs.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional, Tuple
+
 import numpy as np
 import torch
 
+from ..fem.build import basis_for, geom_factors_for, restriction_for
 from ..fem.coefficient import eval_coeff
 from ..fem.fespace import element_node_coords
 from ..fem.geom_factors import compute_geometric_factors
+from ..fem.quadinterp import DeviceBasis
 from ..utils.config import resolve_device
-from . import diffusion, mass
+from . import diffusion, lanemajor, mass
+from .operators import LinearOperator
 
 _KINDS = ("mass", "diffusion")
+_MODULES = {"mass": mass, "diffusion": diffusion}
 #: elements per chunk of element matrices (bounds the einsum temporaries)
 _CHUNK = 1 << 16
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _BoundTerm:
+    """One integrator bound to its qdata (restriction and basis shared)."""
+
+    kind: str
+    qdata: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _LaneGroup:
+    """Domain terms fused into one lane-major pass: ``terms`` hold
+    transposed qdata, ``aff_terms`` affine factors (one stacked
+    reference-matrix matmul)."""
+
+    lb: lanemajor.LaneBasis
+    terms: Tuple[Tuple[str, torch.Tensor], ...]
+    af: Optional[lanemajor.AffineOps] = None
+    aff_terms: Tuple[Tuple[str, torch.Tensor], ...] = ()
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PAOperator:
+    """Partially assembled operator y = Σ_terms Rᵀ apply_t(qdata_t, R x).
+
+    ``terms`` holds every integrator (the diagonal); ``lane`` and
+    ``std_terms`` partition them for ``mult`` into the fused lane-major
+    group and the element-major rest."""
+
+    terms: Tuple[_BoundTerm, ...]
+    ndof: int
+    restr: object
+    db: DeviceBasis
+    lane: Optional[_LaneGroup] = None
+    std_terms: Tuple[_BoundTerm, ...] = ()
+
+    def mult(self, x: torch.Tensor) -> torch.Tensor:
+        out = None
+        if self.lane is not None:
+            lane = self.lane
+            yT = lanemajor.apply_terms(lane.lb, lane.terms, self.restr.mult_t(x),
+                                       af=lane.af, aff_terms=lane.aff_terms)
+            out = self.restr.mult_transpose_t(yT)
+        for t in (self.std_terms if self.lane is not None else self.terms):
+            e = self.restr.mult(x)
+            y = self.restr.mult_transpose(_MODULES[t.kind].apply(self.db, t.qdata, e))
+            out = y if out is None else out + y
+        return out
+
+    def diagonal(self) -> torch.Tensor:
+        out = None
+        for t in self.terms:
+            d = self.restr.mult_transpose(_MODULES[t.kind].diagonal(self.db, t.qdata))
+            out = d if out is None else out + d
+        return out
+
+    def operator(self) -> LinearOperator:
+        return LinearOperator((self.ndof, self.ndof), self.mult, self.diagonal)
+
+
+def _build_lane_group(bound, db):
+    """Partition the terms into the fused lane-major group and the rest, as
+    the JAX package's ``_build_lane_group``: a term whose transposed qdata
+    separates as W ⊗ d joins as affine factors (``lanemajor.try_affine``),
+    else as transposed qdata.  Hex meshes are never affine by construction
+    in the JAX package, so the numerical check alone decides."""
+    lane_terms, aff_terms, std = [], [], []
+    for t in bound:
+        if not lanemajor.supports(db, t.qdata, t.kind):
+            std.append(t)
+            continue
+        qT = lanemajor.transpose_qdata(t.kind, t.qdata)
+        d = lanemajor.try_affine(t.kind, qT, db)
+        if d is not None:
+            aff_terms.append((t.kind, d))
+        else:
+            lane_terms.append((t.kind, qT))
+    if not lane_terms and not aff_terms:
+        return None, ()
+    lb = lanemajor.lane_basis(db)
+    return (_LaneGroup(lb=lb, terms=tuple(lane_terms),
+                       af=lanemajor.affine_ops(db, lb) if aff_terms else None,
+                       aff_terms=tuple(aff_terms)),
+            tuple(std))
 
 
 class BilinearForm:
     """Sum of domain integrators on one space; ``device=None`` is the card."""
 
-    def __init__(self, fes, device=None):
+    def __init__(self, fes, device=None, nq1d: Optional[int] = None):
         self.fes = fes
         self.device = resolve_device(device)
+        self.nq1d = nq1d
         self._terms = []
 
     def add_domain_integrator(self, kind: str, coeff=None) -> "BilinearForm":
@@ -44,12 +146,35 @@ class BilinearForm:
         self._terms.append((kind, coeff))
         return self
 
+    def assemble(self, dtype=None) -> PAOperator:
+        """PARTIAL assembly on a hex space: qdata of every term, and the
+        matrix-free operator over the space's restriction and basis (shared
+        through ``fem/build.py``)."""
+        fes, dev = self.fes, self.device
+        if not fes.dof_to_quad(self.nq1d).tensor:
+            raise NotImplementedError("partial assembly covers hex spaces")
+        gf = geom_factors_for(fes, self.nq1d, dtype, dev)
+        db = basis_for(fes, dtype, dev, self.nq1d)
+        bound = []
+        for kind, coeff in self._terms:
+            cq = eval_coeff(coeff, gf, dtype)
+            if cq is not None and cq.dim() != 2:
+                raise NotImplementedError("the port's partial assembly takes "
+                                          "scalar coefficients")
+            qd = (diffusion.setup_packed(gf, cq) if kind == "diffusion"
+                  else mass.setup(gf, cq))
+            bound.append(_BoundTerm(kind, qd))
+        lane, std = _build_lane_group(bound, db)
+        return PAOperator(terms=tuple(bound), ndof=fes.ndof_scalar,
+                          restr=restriction_for(fes, dev), db=db, lane=lane,
+                          std_terms=std)
+
     def assemble_matrix(self, dtype=None):
         """FULL assembly to a scipy CSR matrix (float64 data)."""
         import scipy.sparse as sp
 
         fes = self.fes
-        d2q = fes.d2q
+        d2q = fes.dof_to_quad(self.nq1d)
         if d2q.tensor:
             raise NotImplementedError("FULL assembly covers simplex spaces")
         dev = self.device

@@ -26,11 +26,13 @@ from ..fem.quadinterp import DeviceBasis
 @dataclasses.dataclass(frozen=True, eq=False)
 class LaneBasis:
     """Full (nq, nd) dofs→quads matrices; ``S`` stacks [B; G₀; G₁; G₂]
-    into one (4·nq, nd) matrix so values and gradients are one matmul."""
+    into one (4·nq, nd) matrix so values and gradients are one matmul,
+    ``SG`` the gradients alone."""
 
     Bf: torch.Tensor                  # (nq, nd)
     G: Tuple[torch.Tensor, ...]       # per reference axis, (nq, nd)
     S: torch.Tensor                   # (4·nq, nd)
+    SG: torch.Tensor                  # (3·nq, nd)
 
     @property
     def nq(self) -> int:
@@ -51,12 +53,38 @@ def lane_basis(db: DeviceBasis) -> LaneBasis:
     dev = db.B1.device
     Bft = torch.as_tensor(Bf, device=dev)
     Gt = tuple(torch.as_tensor(g, device=dev) for g in G)
-    return LaneBasis(Bf=Bft, G=Gt, S=torch.cat((Bft,) + Gt, dim=0))
+    return LaneBasis(Bf=Bft, G=Gt, S=torch.cat((Bft,) + Gt, dim=0),
+                     SG=torch.cat(Gt, dim=0))
+
+
+def supports(db: DeviceBasis, qdata=None, kind: str = "",
+             max_nd: int = 256) -> bool:
+    """Whether the lane-major path applies: a tensor (hex) basis with
+    nd ≤ ``max_nd``, and diffusion qdata in the packed (6, ne, nq)
+    layout.  The dense (simplex) branch of the JAX package is not ported."""
+    if not db.tensor or db.n1d ** 3 > max_nd:
+        return False
+    if kind == "diffusion" and qdata is not None:
+        return qdata.dim() == 3 and qdata.shape[0] == 6
+    return True
+
+
+def mass_qT(qd: torch.Tensor) -> torch.Tensor:
+    """(ne|1, nq) → (nq, ne|1), contiguous."""
+    return qd.T.contiguous()
 
 
 def diffusion_qT(qd_packed: torch.Tensor) -> torch.Tensor:
     """Packed symmetric (6, ne, nq) → (6, nq, ne), contiguous."""
     return qd_packed.permute(0, 2, 1).contiguous()
+
+
+_QT = {"mass": mass_qT, "diffusion": diffusion_qT}
+
+
+def transpose_qdata(kind: str, qd: torch.Tensor) -> torch.Tensor:
+    """Setup-time transpose of one integrator's qdata to the lane layout."""
+    return _QT[kind](qd)
 
 
 def _sym_flux(qT, g):
@@ -67,6 +95,24 @@ def _sym_flux(qT, g):
         qT[3] * gx + qT[1] * gy + qT[5] * gz,
         qT[4] * gx + qT[5] * gy + qT[2] * gz,
     ]
+
+
+def mass_apply(lb: LaneBasis, qT: torch.Tensor, eT: torch.Tensor) -> torch.Tensor:
+    """Bᵀ (q ∘ (B u)) on (nd, ne) E-vectors, ``qT`` (nq, ne|1)."""
+    return lb.Bf.T @ (qT * (lb.Bf @ eT))
+
+
+def diffusion_apply(lb: LaneBasis, qT: torch.Tensor,
+                    eT: torch.Tensor) -> torch.Tensor:
+    """Gᵀ (D ∘ (G u)), packed-symmetric ``qT`` (6, nq, ne|1): one stacked
+    (3·nq × nd) matmul each way."""
+    t = lb.SG @ eT
+    nq = lb.nq
+    D = _sym_flux(qT, [t[d * nq:(d + 1) * nq] for d in range(3)])
+    return lb.SG.T @ torch.cat(D, dim=0)
+
+
+_APPLY = {"mass": mass_apply, "diffusion": diffusion_apply}
 
 
 def mass_diffusion_apply(lb: LaneBasis, qmT: torch.Tensor, qdT: torch.Tensor,
@@ -148,3 +194,46 @@ def affine_mass_diffusion_apply(af: AffineOps, dm, dk, eT,
     scales = [dm] + [dk[c] if gamma is None else gamma * dk[c]
                      for c in range(dk.shape[0])]
     return _scaled_rows((af.Mhat,) + af.Khat, scales, eT)
+
+
+def affine_diffusion_apply(af: AffineOps, d: torch.Tensor,
+                           eT: torch.Tensor) -> torch.Tensor:
+    """Σ_c K̂_c @ (d_c ∘ eT) as one stacked matmul; ``d`` is (6, ne|1)."""
+    return _scaled_rows(af.Khat, [d[c] for c in range(d.shape[0])], eT)
+
+
+_AFF_MATS = {
+    "mass": lambda af, d: (af.Mhat,),
+    "diffusion": lambda af, d: af.Khat[:d.shape[0]],
+}
+
+
+def try_affine(kind: str, qT: torch.Tensor, db: DeviceBasis):
+    """The affine factors of transposed qdata when it separates as W ⊗ d
+    (a leading component axis; mass gets a singleton one), else None."""
+    from ..utils.config import config
+
+    if config.affine_collapse == "off":
+        return None
+    d = separable_collapse(qT, db.W)
+    if d is None:
+        return None
+    return d[None, :] if kind == "mass" else d
+
+
+def apply_terms(lb: LaneBasis, terms, eT: torch.Tensor,
+                af: Optional[AffineOps] = None, aff_terms=()) -> torch.Tensor:
+    """Sum of lane-major integrator applies sharing one (nd, ne) E-vector:
+    ``terms`` are (kind, transposed qdata), ``aff_terms`` (kind, affine
+    factors), which fuse into one stacked reference-matrix matmul."""
+    out = None
+    if aff_terms:
+        mats, scales = [], []
+        for kind, d in aff_terms:
+            mats.extend(_AFF_MATS[kind](af, d))
+            scales.extend(d[c] for c in range(d.shape[0]))
+        out = _scaled_rows(mats, scales, eT)
+    for kind, qT in terms:
+        y = _APPLY[kind](lb, qT, eT)
+        out = y if out is None else out + y
+    return out

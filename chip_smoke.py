@@ -7,9 +7,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 0. Device: a CUDA device must be visible; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
-1. Build: the host setup library (g++) and the three CUDA kernels,
-   gather-sum, sliced-ELL SpMV and fused diffusion apply (one nvcc each,
-   ``sm_90a``, started together), from the sources in this checkout.
+1. Build: the host setup library (g++) and the four CUDA sources,
+   gather-sum, sliced-ELL SpMV, fused diffusion apply and the probe
+   gathers (one nvcc each, ``sm_90a``, started together), from the sources
+   in this checkout.
 2. Kernel against its plain PyTorch version on the card: random planes
    with sentinels (J = 1 and 8, float32 and float64), then the restriction
    planes of the 995,336-hex mesh in all four layouts.  All must be bitwise
@@ -80,6 +81,31 @@ Phases, in order; any failure raises and the exit code is non-zero:
    1.21339844 (the carved problem is the same by construction), CG
    iterations per solve within 16 ± 2, DOF/s on the active dofs, the fused
    diffusion kernel launched and the gather kernel not at all.
+11. The Mosaic gather probes: first their main path, ``python -m
+   cardiac_ablation_ecm2_tpu_torch.benchmarks.gather_micro`` at n=48
+   (``benchmarks.gather_micro.run``), every output equal to its probe's
+   numpy reference and every probe kernel launched; then each kernel
+   (``take_flat`` on gather-sum, ``take_along_rows``, ``take_along_lanes``,
+   ``take_rows``) at every probe shape, bitwise equal to its plain version
+   and to the numpy reference, in float32 and, at t1's shapes, float64;
+   prints the median CUDA-event time of the kernel, the plain version and
+   the library call (``index_select``, ``torch.gather``), each the device
+   time of one of 20 calls queued behind a sleep kernel (one call between
+   two events would time its launch), the least bytes
+   (indices and output once, each source element the indices touch once),
+   GB/s and the bound.
+12. The coupled RF-ablation app (``models/ablation.AblationSim``: Laplace →
+   SAR → Pennes → Arrhenius; electrode 2, ground 3, body 1, 30 V, σ 0.54,
+   σ(T) = 0.54·(1 + 0.015(T − 37)) re-solved every step).  (a) Cardiac hex
+   n=16 in float64 on CUDA and on CPU tensors, one plain step and two
+   coupled steps with σ(T) and with k(T): Φ, SAR, T and Ω within 1e-10
+   relative, equal CG counts in every RF and stage solve.  (b) The [4] mesh n=126 in float32, rel_tol 1e-5: setup
+   seconds (space, RF solve and its iterations, operators), one warm-up and
+   two timed steps, one timed coupled step with its re-solve; holds the RF
+   solve's true residual ≤ 1e-5, the delivered power P equal to ΦᵀAΦ of
+   the unconstrained operator within 1e-4, T finite with T_max > T_a, Ω
+   finite, ≥ 0 and non-decreasing, and launches of the gather-sum and the
+   fused diffusion kernels.  No MFEM reference exists for the coupled app.
 
 The last two lines of standard output are one JSON object describing the
 kernels and one JSON object with the device.
@@ -133,7 +159,38 @@ KERNELS = {
     "fused_diffusion": dict(
         source="cardiac_ablation_ecm2_tpu_torch/csrc/fused_diffusion.cu",
         replaces="cardiac_ablation_ecm2_tpu/ops/pallas_kernels.py:101"),
+    "take_along_rows": dict(
+        source="cardiac_ablation_ecm2_tpu_torch/csrc/gather_probes.cu",
+        replaces="benchmarks/gather_micro3.py:55",
+        also_replaces=["benchmarks/gather_micro4.py:46"]),
+    "take_along_lanes": dict(
+        source="cardiac_ablation_ecm2_tpu_torch/csrc/gather_probes.cu",
+        replaces="benchmarks/gather_micro3.py:88",
+        also_replaces=["benchmarks/gather_micro4.py:80"]),
+    "take_rows": dict(
+        source="cardiac_ablation_ecm2_tpu_torch/csrc/gather_probes.cu",
+        replaces="benchmarks/gather_micro4.py:121",
+        also_replaces=["benchmarks/gather_micro4.py:163"]),
 }
+#: the probe kernels; take_flat (probe p1, benchmarks/gather_micro2.py:80)
+#: is one launch of gather_sum
+PROBE_KERNELS = ("take_along_rows", "take_along_lanes", "take_rows")
+#: the probe whose shape the kernels line reports for each
+PROBE_LINE = {"take_along_rows": "T1", "take_along_lanes": "T2", "take_rows": "U3"}
+# the coupled app's settings ([12]): cardiac mesh attributes 2 = electrode
+# notch, 3 = ground pad, 1 = outer surface at body temperature
+ABLATION = dict(electrode_bdr=[2], ground_bdr=[3], body_bdr=[1], voltage=30.0,
+                sigma=0.54)
+ABLATION_DT = 0.5
+
+
+def sigma_of_T(Tq):
+    """σ(T) of the coupled runs: +1.5% per °C above 37 °C."""
+    return 0.54 * (1.0 + 0.015 * (Tq - 37.0))
+
+
+def k_of_T(Tq):
+    return 0.54 * (1.0 + 0.02 * (Tq - 37.0))
 
 
 def check(cond, what):
@@ -187,14 +244,15 @@ def phase_build():
     from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
     from cardiac_ablation_ecm2_tpu_torch.ops import ell
     from cardiac_ablation_ecm2_tpu_torch.ops import fused_diffusion as fd
+    from cardiac_ablation_ecm2_tpu_torch.ops import gather_probes as gp
     from cardiac_ablation_ecm2_tpu_torch.utils import native
 
     t0 = time.perf_counter()
-    builds = (native.lib, bg.build, ell.build, fd.build)
+    builds = (native.lib, bg.build, ell.build, fd.build, gp.build)
     with ThreadPoolExecutor(len(builds)) as pool:
         for f in [pool.submit(b) for b in builds]:
             f.result()
-    print(f"[1] build: host library and three CUDA kernels in parallel, "
+    print(f"[1] build: host library and four CUDA sources in parallel, "
           f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -297,6 +355,17 @@ def small_cuda_vs_cpu(label, fes, dev, **kw):
           f"CG iterations {ops[0].cg_iterations} vs {ops[1].cg_iterations}; "
           f"second run bitwise equal to the first: CUDA "
           f"{torch.equal(Tg, Tg2)}, CPU {torch.equal(Tc, Tc2)}")
+    # where the two sides part (ROADMAP Queue 3: [3] read ~8e-10 on some
+    # machines with equal CG counts): setup arrays and one application of
+    # each operator to the CPU side's θ
+    parts = {name: (getattr(ops[0], name), getattr(ops[1], name))
+             for name in ("b_const", "Mrc_diag", "A_diag", "Mrc_qd", "K_qd")}
+    parts["residual(theta)"] = (ops[0].residual(Tc.to(dev)), ops[1].residual(Tc))
+    parts["stage apply(theta)"] = (ops[0]._stage_apply(GAMMA)(Tc.to(dev)),
+                                   ops[1]._stage_apply(GAMMA)(Tc))
+    print(f"{label} CUDA vs CPU rel diff of "
+          + ", ".join(f"{k} {float((a.cpu() - b).abs().max() / b.abs().max()):.3e}"
+                      for k, (a, b) in parts.items()))
     check(rel <= 1e-10, f"{label} kernel path within 1e-10 of the plain path")
     check(ops[0].cg_iterations == ops[1].cg_iterations,
           f"{label} equal CG iterations per stage")
@@ -338,6 +407,7 @@ def start_main_path():
     from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
     from cardiac_ablation_ecm2_tpu_torch.ops import ell
     from cardiac_ablation_ecm2_tpu_torch.ops import fused_diffusion as fd
+    from cardiac_ablation_ecm2_tpu_torch.ops import gather_probes as gp
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -345,16 +415,22 @@ def start_main_path():
     bg.gather_sum.launches = 0
     ell.ell_spmv.launches = 0
     fd.diffusion_apply.launches = 0
+    for name in PROBE_KERNELS + ("take_flat",):
+        getattr(gp, name).launches = 0
 
 
 def main_path_launches():
     from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
     from cardiac_ablation_ecm2_tpu_torch.ops import ell
     from cardiac_ablation_ecm2_tpu_torch.ops import fused_diffusion as fd
+    from cardiac_ablation_ecm2_tpu_torch.ops import gather_probes as gp
 
-    return {"gather_sum": bg.gather_sum.launches,
-            "ell_spmv": ell.ell_spmv.launches,
-            "fused_diffusion": fd.diffusion_apply.launches}
+    out = {"gather_sum": bg.gather_sum.launches,
+           "ell_spmv": ell.ell_spmv.launches,
+           "fused_diffusion": fd.diffusion_apply.launches}
+    out.update({name: getattr(gp, name).launches
+                for name in PROBE_KERNELS + ("take_flat",)})
+    return out
 
 
 def report_run(tag, op, T, theta_ref, ref_name="MFEM"):
@@ -819,6 +895,222 @@ def phase_masked(dev):
     return op, launches
 
 
+def probe_bytes(p):
+    """Least bytes of one probe call: the indices and the output once, and
+    each source element the indices touch once (a gather does no
+    arithmetic, so bytes bound it)."""
+    data, idx = p.args
+    if p.kernel == "take_rows":
+        touched = torch.unique(idx).numel() * data.shape[1]
+        nout = idx.numel() * data.shape[1]
+    elif p.kernel == "take_along_rows":
+        cols = torch.arange(data.shape[1], device=idx.device)
+        touched = torch.unique(idx.long() * data.shape[1] + cols).numel()
+        nout = idx.numel()
+    elif p.kernel == "take_along_lanes":
+        rows = torch.arange(data.shape[0], device=idx.device)[:, None]
+        touched = torch.unique(rows * data.shape[1] + idx.long()).numel()
+        nout = idx.numel()
+    else:                                           # take_flat
+        touched, nout = torch.unique(idx).numel(), idx.numel()
+    return idx.numel() * 4 + (touched + nout) * data.element_size()
+
+
+def check_probe(p, args, ref, label):
+    """The probe's kernel against its plain version and its numpy
+    reference, bitwise; returns the largest |kernel − plain|."""
+    out = p.fn(*args)
+    plain = p.plain(*args)
+    torch.cuda.synchronize()
+    bits = torch.int64 if out.dtype == torch.float64 else torch.int32
+    check(torch.equal(out.view(bits), plain.view(bits)),
+          f"{label}: kernel bitwise equal to plain")
+    check(np.array_equal(out.cpu().numpy().view(np.uint8),
+                         np.ascontiguousarray(ref).view(np.uint8)),
+          f"{label}: kernel bitwise equal to the probe's numpy reference")
+    return float((out - plain).abs().max())
+
+
+def phase_probes(dev):
+    """[11] The probes' main path, then every probe kernel at every probe
+    shape; returns the kernels line's numbers of the three probe kernels
+    and the main path's launch counts."""
+    from cardiac_ablation_ecm2_tpu_torch.benchmarks import gather_micro
+
+    start_main_path()
+    results = gather_micro.run(48, 2, dev)
+    launches = main_path_launches()
+    print(f"[11] probe main path (gather_micro.run, n=48 order 2): launches "
+          + ", ".join(f"{k} {launches[k]}" for k in PROBE_KERNELS
+                      + ("take_flat", "gather_sum")))
+    check(all(r["err"] in (None, 0.0) for r in results),
+          "every probe output equals its numpy reference")
+    for k in PROBE_KERNELS + ("take_flat", "gather_sum"):
+        check(launches[k] > 0, f"the probe main path launched {k}")
+    numbers = {}
+    for p in gather_micro.probes(48, 2, dev):
+        if p.kernel is None:
+            continue
+        label = f"{p.name} {tuple(p.args[0].shape)}<-{tuple(p.args[1].shape)}"
+        err = check_probe(p, p.args, p.ref, label)
+        if p.name[:2] in ("P1", "T1", "T2", "U3"):
+            args64 = (p.args[0].double(), p.args[1])
+            err = max(err, check_probe(p, args64, p.ref.astype(np.float64),
+                                       label + " float64"))
+        ms = gather_micro.cuda_ms(lambda: p.fn(*p.args))
+        plain_ms = gather_micro.cuda_ms(lambda: p.plain(*p.args))
+        lib_ms = gather_micro.cuda_ms(p.library)
+        one_ms = time_ms(lambda: p.fn(*p.args))
+        nbytes = probe_bytes(p)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"[11] {label}: bitwise equal to plain and to numpy"
+              f"{' (float32, float64)' if p.name[:2] in ('P1', 'T1', 'T2', 'U3') else ''}"
+              f"; device time per call, 20 queued: kernel {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms; one call with its launch {one_ms:.4f} ms; "
+              f"{nbytes / 1e6:.2f} MB least, bound {bound:.4f} ms (bytes)")
+        for k, tag in PROBE_LINE.items():
+            if p.kernel == k and p.name.startswith(tag):
+                numbers[k] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                  bound_ms=bound, bound_by="bytes")
+            if p.kernel == k:
+                numbers.setdefault(k + "_err", 0.0)
+                numbers[k + "_err"] = max(numbers[k + "_err"], err)
+    for k in PROBE_KERNELS:
+        numbers[k]["max_abs_err"] = numbers.pop(k + "_err")
+        numbers[k]["launches"] = launches[k]
+    return numbers
+
+
+def rel_diff(a, b):
+    return float((a.cpu() - b).abs().max() / b.abs().max())
+
+
+def phase_ablation_small(dev):
+    """[12a] The coupled app on cardiac hex n=16 in float64, CUDA against
+    CPU tensors, with σ(T) re-solved every step and with k(T)."""
+    from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
+    from cardiac_ablation_ecm2_tpu_torch.models.ablation import AblationSim
+
+    mesh = make_cardiac_hex_mesh(16, lengths=(L, L, L / 2), electrode_radius=0.004)
+    for label, extra in (("sigma(T)", dict(sigma_T=sigma_of_T, resolve_every=1)),
+                         ("k(T)", dict(k_T=k_of_T))):
+        sims = [AblationSim(mesh=mesh, dtype="float64", device=d, **ABLATION,
+                            **extra) for d in (dev, "cpu")]
+        # the coupled run starts after one plain step: at the uniform T_a, σ(T)
+        # is a constant, Φ does not change, and the first re-solve would
+        # start at its solution and iterate on round-off, whose CG count
+        # differs between summation orders
+        outs = []
+        for s in sims:
+            T, om, t = s.step(*s.initial_state(), 0.0, ABLATION_DT)
+            outs.append(s.run(t + 2 * ABLATION_DT, ABLATION_DT, T, om, t0=t))
+        fields = {"phi": (sims[0].rf.phi, sims[1].rf.phi),
+                  "SAR": (sims[0].rf.sar_q, sims[1].rf.sar_q),
+                  "T": (outs[0][0], outs[1][0]), "omega": (outs[0][1], outs[1][1])}
+        counts = [(s.rf.iterations, s.op.cg_iterations) for s in sims]
+        if "resolve_every" in extra:
+            fields["phi re-solved"] = (sims[0].phi, sims[1].phi)
+            fields["SAR re-solved"] = (sims[0].sar_q, sims[1].sar_q)
+            counts = [c + (s.rf_op.cg_iterations,) for c, s in zip(counts, sims)]
+        rels = {k: rel_diff(*v) for k, v in fields.items()}
+        print(f"[12a] ablation {label}, cardiac hex n=16 f64, {sims[0].fes.ndof} "
+              f"dofs: CUDA vs CPU rel diff "
+              + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+              + f"; CG (RF solve, stages, re-solves) CUDA {counts[0]} CPU {counts[1]}")
+        check(max(rels.values()) <= 1e-10,
+              f"[12a] {label}: CUDA within 1e-10 of the CPU")
+        check(counts[0] == counts[1], f"[12a] {label}: equal CG counts")
+
+
+def rf_system_check(sim):
+    """The RF solve's true relative residual ‖B − A_c Φ‖/‖B‖ of the
+    constrained system it solved, and Φᵀ A Φ of the unconstrained
+    partially assembled operator (float64 sums)."""
+    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
+    from cardiac_ablation_ecm2_tpu_torch.ops.operators import form_linear_system
+
+    fes, phi = sim.fes, sim.rf.phi
+    A = BilinearForm(fes, phi.device).add_domain_integrator(
+        "diffusion", sim.sigma).assemble(sim.dtype).operator()
+    ess_e = fes.essential_dofs(sim.electrode_bdr)
+    ess = np.unique(np.concatenate([ess_e, fes.essential_dofs(sim.ground_bdr)]))
+    x_bc = torch.zeros_like(phi)
+    x_bc[torch.as_tensor(ess_e, dtype=torch.int64, device=phi.device)] = sim.voltage
+    Ac, B = form_linear_system(A, ess, x_bc, torch.zeros_like(phi))
+    res = float((B - Ac.mult(phi)).double().norm() / B.double().norm())
+    return res, float(torch.dot(phi.double(), A.mult(phi).double()))
+
+
+def phase_ablation_main(dev, mesh, mesh_s):
+    """[12b] The coupled app at full width on the [4] mesh; returns the
+    launch counts of this run."""
+    from cardiac_ablation_ecm2_tpu_torch.models import rf_laplace
+    from cardiac_ablation_ecm2_tpu_torch.models.ablation import AblationSim
+
+    start_main_path()
+    sim = AblationSim(mesh=mesh, dtype="float32", device=dev, rel_tol=1e-5,
+                      sigma_T=sigma_of_T, resolve_every=1, **ABLATION)
+    sec, fes, rf = sim.setup_seconds, sim.fes, sim.rf
+    T, om = sim.initial_state()
+    oms = [om]
+    T, om, t = sim.step(T, om, 0.0, ABLATION_DT)          # warm-up step
+    oms.append(om)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(2):
+        T, om, t = sim.step(T, om, t, ABLATION_DT)
+        oms.append(om)
+    b.record()
+    torch.cuda.synchronize()
+    s_step = a.elapsed_time(b) / 1e3 / 2
+    t0 = time.perf_counter()
+    phi, sar_q, info = sim.rf_op.resolve(sim.rf_op.sigma_of_T_q(sim.sigma_T, T),
+                                         rf.phi)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    T, om, t = sim.step_coupled(T, om, t, ABLATION_DT, sar_q)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    oms.append(om)
+    launches = main_path_launches()
+    peak = torch.cuda.max_memory_allocated()
+    res, phi_a_phi = rf_system_check(sim)
+    P = float(rf_laplace.total_power(fes, rf.sar_q))
+    T_max, om_max = float(T.max()), float(om.max())
+    print(f"[12b] coupled RF ablation, cardiac hex n=126 order 2 f32: {mesh.ne} "
+          f"hexes, {fes.ndof} dofs; electrode 2, ground 3, body 1, 30 V")
+    print(f"[12b] setup: mesh {mesh_s:.2f} s (the [4] mesh), space "
+          f"{sec['space']:.2f} s, RF solve {sec['rf_solve']:.2f} s ({rf.iterations} "
+          f"CG iterations, converged {rf.converged}, true relative residual "
+          f"{res:.3e}), operators {sec['operator']:.2f} s")
+    print(f"[12b] s/step {s_step:.6f} (CUDA events, 2 steps after 1 warm-up; stage "
+          f"CG {sim.op.cg_iterations}); coupled step: sigma(T) re-solve "
+          f"{t1 - t0:.3f} s ({info.iterations} CG iterations, converged "
+          f"{info.converged}) + step {t2 - t1:.3f} s")
+    print(f"[12b] T_max {T_max:.6f} C, max omega {om_max:.6e}, lesion volume "
+          f"{sim.lesion_volume(om):.6e} m^3, P = total_power {P:.6f} W, "
+          f"Phi^T A Phi {phi_a_phi:.6f} W, max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB")
+    print(f"[12b] gather-kernel launches {launches['gather_sum']}, fused diffusion "
+          f"launches {launches['fused_diffusion']}; no MFEM reference exists for "
+          f"the coupled app, so none is held")
+    check(res <= 1e-5, "[12b] RF true relative residual <= 1e-5")
+    check(abs(P - phi_a_phi) <= 1e-4 * abs(phi_a_phi),
+          "[12b] P equals Phi^T A Phi within 1e-4")
+    check(bool(torch.isfinite(T).all()) and T_max > sim.T_a,
+          "[12b] T finite and T_max > T_a")
+    check(all(bool(torch.isfinite(o).all()) and bool((o >= 0).all()) for o in oms),
+          "[12b] omega finite and >= 0")
+    check(all(bool((b >= a).all()) for a, b in zip(oms, oms[1:])),
+          "[12b] omega non-decreasing")
+    check(launches["gather_sum"] > 0 and launches["fused_diffusion"] > 0,
+          "[12b] the coupled path launched the gather and fused diffusion kernels")
+    return launches
+
+
 def main():
     from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
     from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
@@ -832,16 +1124,17 @@ def main():
     kc = KernelCheck(dev)
     phase_kernel_random(kc)
     t0 = time.perf_counter()
-    mesh = make_cardiac_hex_mesh(126, lengths=(L, L, L / 2),
-                                 electrode_radius=0.004)
+    hex_mesh = make_cardiac_hex_mesh(126, lengths=(L, L, L / 2),
+                                     electrode_radius=0.004)
     t1 = time.perf_counter()
-    fes = FESpace(mesh, 2)
+    fes = FESpace(hex_mesh, 2)
     t2 = time.perf_counter()
-    check((mesh.ne, fes.ndof) == (995_336, 8_092_657), "n=126 mesh size")
+    check((hex_mesh.ne, fes.ndof) == (995_336, 8_092_657), "n=126 mesh size")
     phase_kernel_restriction(kc, fes)
     phase_small_end_to_end(dev)
-    hex_launches = phase_main(dev, mesh, fes, (t1 - t0, t2 - t1))
-    del mesh, fes
+    hex_launches = phase_main(dev, hex_mesh, fes, (t1 - t0, t2 - t1))
+    mesh_s = t1 - t0
+    del fes
 
     mesh, fes, host_s = tet_space(66)
     check((mesh.ne, fes.ndof) == (956_820, 1_278_670), "tet n=66 mesh size")
@@ -858,6 +1151,10 @@ def main():
                                                timed=True)
     fd_numbers["max_abs_err"] = err
     del op
+
+    probe_numbers = phase_probes(dev)
+    phase_ablation_small(dev)
+    phase_ablation_main(dev, hex_mesh, mesh_s)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # gather_sum: the restriction round trip of one CG apply on the hex
@@ -876,7 +1173,8 @@ def main():
              bound_by="bytes", library_ms=ell_numbers["library_ms"]),
         dict(name="fused_diffusion", route="cuda", **KERNELS["fused_diffusion"],
              launches=masked_launches["fused_diffusion"], **fd_numbers),
-    ]}))
+    ] + [dict(name=k, route="cuda", **KERNELS[k], **probe_numbers[k])
+         for k in PROBE_KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

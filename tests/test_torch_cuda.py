@@ -1,8 +1,9 @@
-"""The hand-written CUDA kernels on the card: the gather-sum and the
-sliced-ELL SpMV bitwise equal to their plain PyTorch versions, the fused
-diffusion apply within rounding of its plain version at every shape it
-takes (and raising on one it does not), and the restriction, the tet ELL
-operator and the masked cardiac-hex lattice on CUDA equal to the CPU.
+"""The hand-written CUDA kernels on the card: the gather-sum, the
+sliced-ELL SpMV and the probe gathers bitwise equal to their plain PyTorch
+versions, the fused diffusion apply within rounding of its plain version at
+every shape it takes (and raising on one it does not), and the restriction,
+the tet ELL operator, the masked cardiac-hex lattice and the coupled
+ablation app on CUDA equal to the CPU.
 Needs an NVIDIA GPU and nvcc; skips without a GPU.  This file imports no
 JAX, so it also runs where JAX is not installed:
 
@@ -200,3 +201,83 @@ def test_masked_lattice_cuda_equals_cpu(cuda):
     assert ops[0].cg_iterations == ops[1].cg_iterations
     rel = float((Ts[0] - Ts[1]).abs().max() / Ts[1].abs().max())
     assert rel <= 1e-10, rel
+
+
+def _bits(t):
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind,shape", [
+    ("take_flat", (1_001, 5_003)), ("take_along_rows", (713, 128, 2_333)),
+    ("take_along_rows", (17, 3, 41)), ("take_along_lanes", (2_333, 128, 128)),
+    ("take_along_lanes", (517, 1_024, 128)), ("take_along_lanes", (9, 16_384, 77)),
+    ("take_along_lanes", (41, 3, 5)), ("take_rows", (713, 128, 2_333)),
+    ("take_rows", (37, 5, 101))])
+def test_probe_kernels_bitwise_equal_plain(cuda, dtype, kind, shape):
+    """Each probe gather on the card against its plain version: the probes'
+    row width 128, u2's 1,024, a row wider than the lane gather's 48 KB
+    shared-memory tile (16,384), and odd widths (no 16-byte row copies).
+    Every index lies on the gathered axis (plus one out-of-range row index
+    for take_rows' kernel, which reads it as 0)."""
+    from cardiac_ablation_ecm2_tpu_torch.ops import gather_probes as gp
+
+    rng = np.random.default_rng(sum(shape))
+    fn, plain = getattr(gp, kind), getattr(gp, kind + "_plain")
+    if kind == "take_flat":
+        n, k = shape
+        data = rng.standard_normal(n)
+        idx = rng.integers(0, n, (k // 7, 7))
+    elif kind == "take_along_rows":
+        R, C, B = shape
+        data, idx = rng.standard_normal((R, C)), rng.integers(0, R, (B, C))
+    elif kind == "take_along_lanes":
+        B, W, K = shape
+        data, idx = rng.standard_normal((B, W)), rng.integers(0, W, (B, K))
+    else:
+        R, C, N = shape
+        data, idx = rng.standard_normal((R, C)), np.sort(rng.integers(0, R, N))
+    data = torch.as_tensor(data, dtype=dtype, device=cuda)
+    idx = torch.as_tensor(idx, dtype=torch.int32, device=cuda)
+    before = fn.launches
+    out = fn(data, idx)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(_bits(out), _bits(plain(data, idx)))
+    if kind == "take_rows":
+        bad = torch.tensor([0, data.shape[0], -1], dtype=torch.int32, device=cuda)
+        out = fn(data, bad)
+        assert torch.equal(out[0], data[0]) and not out[1:].any()
+
+
+def test_ablation_cuda_equals_cpu(cuda):
+    """The coupled app at the cardiac hex n=6 in float64, σ(T) re-solved
+    every step: Φ, SAR, T and Ω on the card within 1e-10 of the CPU, equal
+    CG counts for every RF and stage solve, and both kernels launched.  The
+    coupled steps follow one plain step: at the uniform T_a, σ(T) is a
+    constant, Φ does not change, and a re-solve there would iterate on
+    round-off, whose CG count differs between summation orders."""
+    from cardiac_ablation_ecm2_tpu_torch.models.ablation import AblationSim
+
+    L = 0.04
+    mesh = make_cardiac_hex_mesh(6, lengths=(L, L, L / 2), electrode_radius=0.004)
+    kw = dict(electrode_bdr=[2], ground_bdr=[3], body_bdr=[1], voltage=30.0,
+              sigma=0.54, rel_tol=1e-11, dtype="float64", resolve_every=1,
+              sigma_T=lambda Tq: 0.54 * (1.0 + 0.015 * (Tq - 37.0)))
+    before = bg.gather_sum.launches, fd.diffusion_apply.launches
+    sims = [AblationSim(mesh=mesh, device=d, **kw) for d in (cuda, "cpu")]
+    out = []
+    for s in sims:
+        T, om, t = s.step(*s.initial_state(), 0.0, 0.5)
+        out.append(s.run(t + 1.0, 0.5, T, om, t0=t))
+    assert bg.gather_sum.launches > before[0]
+    assert fd.diffusion_apply.launches > before[1]
+    assert sims[0].rf.iterations == sims[1].rf.iterations
+    assert sims[0].rf_op.cg_iterations == sims[1].rf_op.cg_iterations
+    assert sims[0].op.cg_iterations == sims[1].op.cg_iterations
+    pairs = [(sims[0].rf.phi, sims[1].rf.phi), (sims[0].phi, sims[1].phi),
+             (sims[0].sar_q, sims[1].sar_q), (out[0][0], out[1][0]),
+             (out[0][1], out[1][1])]
+    for a, b in pairs:
+        rel = float((a.cpu() - b).abs().max() / b.abs().max())
+        assert rel <= 1e-10, rel
