@@ -1,47 +1,61 @@
 """Element restriction: L-vector ↔ E-vector (counterpart of
 ``cardiac_ablation_ecm2_tpu/fem/restriction.py``).
 
-Both directions run on one op, ``ops/block_gather.gather_sum``:
+Both directions run on the ops of ``ops/block_gather.py``:
 
-* L→E is one gather plane: the flattened gather map, for the element-major
-  (ne, nd) layout or for the transposed (nd, ne) layout the lane-major
-  applies consume (``ops/lanemajor.py``).
-* E→L is a destination-sorted gather-sum over multiplicity planes: plane j
-  holds, for every dof, its j-th E-slot in ascending slot order (a stable
-  counting sort by destination dof); a dof with fewer than j+1 slots points
-  at the sentinel slot, which reads zero.  Hexes have multiplicity ≤ 8,
-  order-2 tets of the cardiac mesh up to 46.
-  The fixed order and the absence of atomics make E→L deterministic.
+* L→E is a gather through the (ne, nd) gather map: ``gather_sum`` with one
+  plane for the element-major layout, ``gather_transpose`` for the
+  transposed (nd, ne) layout the lane-major applies consume
+  (``ops/lanemajor.py``).
+* E→L is the sorted segment-sum of the JAX package's base restriction:
+  the E-slots of every dof in ascending slot order (a stable counting sort
+  by destination dof), summed in that order by ``segment_sum``, one slot
+  list for each E-layout.  Hexes have multiplicity ≤ 8, order-2 tets of
+  the cardiac mesh up to 46.  The fixed order and the absence of atomics
+  make E→L deterministic.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 import torch
 
-from ..ops.block_gather import gather_sum
+from ..ops.block_gather import gather_sum, gather_transpose, segment_sum
 from ..utils.config import resolve_device
 from ..utils.native import counting_argsort
 
 
-def scatter_planes(flat: np.ndarray, ndof: int) -> np.ndarray:
-    """(max multiplicity, ndof) int32 planes for the E→L sum of the E-slot
-    → dof map ``flat``; the sentinel is ``flat.size``."""
+def scatter_slots(flat: np.ndarray, ndof: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The E→L slot list of the E-slot → dof map ``flat``: int32 slots
+    sorted by dof, ascending within a dof, and the (ndof + 1,) int64
+    offsets of each dof's run."""
     flat = np.asarray(flat, dtype=np.int64)
+    if flat.size > np.iinfo(np.int32).max:
+        raise ValueError(f"{flat.size} E-slots do not fit int32 slot indices")
     order = counting_argsort(flat, int(ndof) + 1)
-    counts = np.bincount(flat, minlength=ndof)
-    starts = np.zeros(ndof + 1, dtype=np.int64)
-    np.cumsum(counts, out=starts[1:])
-    planes = np.full((int(counts.max(initial=0)), ndof), flat.size, np.int32)
+    offsets = np.zeros(int(ndof) + 1, dtype=np.int64)
+    np.cumsum(np.bincount(flat, minlength=ndof), out=offsets[1:])
+    return order.astype(np.int32), offsets
+
+
+def scatter_planes(flat: np.ndarray, ndof: int) -> np.ndarray:
+    """The same slots as (max multiplicity, ndof) int32 planes for
+    ``gather_sum``: plane k holds every dof's k-th slot, the sentinel
+    ``flat.size`` where a dof has fewer."""
+    order, offsets = scatter_slots(flat, ndof)
+    counts = np.diff(offsets)
+    planes = np.full((int(counts.max(initial=0)), ndof), np.size(flat), np.int32)
     for k in range(planes.shape[0]):
         sel = counts > k
-        planes[k, sel] = order[starts[:-1][sel] + k]
+        planes[k, sel] = order[offsets[:-1][sel] + k]
     return planes
 
 
 class ElementRestriction:
-    """Gather/scatter planes of one (ne, nd) gather map, on one device
-    (``None``: the card)."""
+    """The gather map and the E→L slot lists of one (ne, nd) gather map, on
+    one device (``None``: the card)."""
 
     def __init__(self, gather_map: np.ndarray, ndof: int, device=None):
         device = resolve_device(device)
@@ -49,16 +63,17 @@ class ElementRestriction:
         self.ne, self.nd = gm.shape
         self.ndof = int(ndof)
         flat = gm.reshape(-1)
-        flatT = gm.T.reshape(-1)
+        slots, offsets = scatter_slots(flat, self.ndof)
+        slotsT, _ = scatter_slots(gm.T.reshape(-1), self.ndof)
 
-        def dev(a):
-            return torch.as_tensor(np.ascontiguousarray(a, np.int32),
-                                   device=device)
+        def dev(a, dtype=np.int32):
+            return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
 
-        self.g = dev(flat[None, :])                      # (1, ne·nd)
-        self.gT = dev(flatT[None, :])                    # (1, nd·ne)
-        self.s = dev(scatter_planes(flat, self.ndof))    # (J, ndof)
-        self.sT = dev(scatter_planes(flatT, self.ndof))
+        self.g = dev(flat[None, :])                 # (1, ne·nd)
+        self.gm = self.g.view(self.ne, self.nd)     # the same map, (ne, nd)
+        self.offsets = dev(offsets, np.int64)       # (ndof + 1,), both layouts
+        self.slots = dev(slots)                     # (ne·nd,), (ne, nd) E-vector
+        self.slotsT = dev(slotsT)                   # (nd·ne,), (nd, ne) E-vector
 
     def mult(self, u: torch.Tensor) -> torch.Tensor:
         """L→E: (ndof,) → (ne, nd)."""
@@ -66,12 +81,12 @@ class ElementRestriction:
 
     def mult_t(self, u: torch.Tensor) -> torch.Tensor:
         """L→E in the transposed layout: (ndof,) → (nd, ne)."""
-        return gather_sum(u, self.gT).view(self.nd, self.ne)
+        return gather_transpose(u, self.gm)
 
     def mult_transpose(self, u_e: torch.Tensor) -> torch.Tensor:
         """E→L sum: (ne, nd) → (ndof,), deterministic."""
-        return gather_sum(u_e.reshape(-1), self.s)
+        return segment_sum(u_e.reshape(-1), self.slots, self.offsets)
 
     def mult_transpose_t(self, u_eT: torch.Tensor) -> torch.Tensor:
         """E→L sum from the transposed layout: (nd, ne) → (ndof,)."""
-        return gather_sum(u_eT.reshape(-1), self.sT)
+        return segment_sum(u_eT.reshape(-1), self.slotsT, self.offsets)

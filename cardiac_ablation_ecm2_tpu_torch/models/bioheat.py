@@ -142,7 +142,7 @@ class BioheatOperator:
 
         self.restr = restriction_for(fes, self.device)
         self.db = basis_for(fes, self.dtype, self.device)
-        self._ell = self._lane = self._aff = None
+        self._ell = self._ell_A = self._lane = self._aff = None
         if arrays is None:
             # θ form on the ELL path: b_θ = b − A(T_a·1) is assembled as
             # (Q_met, v) alone, since M_ω T_a·1 − T_a(K + M_ω)·1 = −T_a K·1
@@ -159,7 +159,7 @@ class BioheatOperator:
                 self._collapse()
             self.setup_seconds["pa"] = self._elapsed(t0)
             if assembled_apply == "ell":
-                self._ell = self._build_ell_pair()
+                self._set_ell(self._build_ell_pair())
             else:
                 self._choose_apply(self.Mrc_qd, self.Mw_qd, self.K_qd)
             if theta_form and not exact_theta:
@@ -257,6 +257,12 @@ class BioheatOperator:
         self.setup_seconds["ell_pair"] = self._elapsed(t1)
         return pair
 
+    def _set_ell(self, pair):
+        """The ELL pair, and the residual's one-plane operator K + M_ω
+        formed from it once, c0 = 0 and c1 = 1 (the stage plane's formula)."""
+        self._ell = pair
+        self._ell_A = None if pair is None else pair.combined(0.0, 1.0)
+
     def _choose_apply(self, qm, qw, qk):
         """Lane-major arrays, and the affine factors when the qdata
         separates (same detectors, same order as the JAX package)."""
@@ -302,7 +308,8 @@ class BioheatOperator:
             M, A = (sp.csr_matrix((arrays[k + "d"], arrays[k + "i"],
                                    arrays[k + "p"]), shape=(n, n))
                     for k in ("M", "A"))
-            self._ell = MultiELLPair.from_csr_pair(M, A, self.dtype, self.device)
+            self._set_ell(MultiELLPair.from_csr_pair(M, A, self.dtype,
+                                                     self.device))
             return
         if "_dk" in arrays:
             self._lane = lanemajor.lane_basis(self.db)
@@ -325,10 +332,13 @@ class BioheatOperator:
         ``override``, ex16's ``SetParameters`` rebuild).  When ``K_qd``,
         ``Mrc_qd`` or ``Mw_qd`` is replaced, the lane-major copies
         (``_qkT``/``_qmT``/``_qwT``) are refreshed from it and the affine
-        factors are dropped, unless the caller replaces those too.  The
+        factors are dropped, unless the caller replaces those too; a
+        replaced ELL pair ``_ell`` brings its own residual plane.  The
         copy appends its CG counts to the same ``cg_iterations`` list."""
         clone = object.__new__(type(self))
         clone.__dict__ = {**self.__dict__, **kw}
+        if "_ell" in kw and "_ell_A" not in kw:
+            clone._set_ell(kw["_ell"])
         if self._lane is not None and kw.keys() & {"K_qd", "Mrc_qd", "Mw_qd"}:
             if "K_qd" in kw and "_qkT" not in kw:
                 clone._qkT = lanemajor.diffusion_qT(clone.K_qd)
@@ -350,11 +360,12 @@ class BioheatOperator:
         return self.restr.mult_transpose(mass.apply(self.db, qd_mass, e) + y)
 
     def _stage_apply(self, gamma) -> Callable:
-        """v ↦ (M_ρc + γ(K + M_ω)) v: one weighted SpMV of the ELL pair, or
-        one restriction round trip, with the γ-combined mass coefficient
-        formed once per solve."""
+        """v ↦ (M_ρc + γ(K + M_ω)) v: one SpMV of the ELL weight plane
+        M_ρc + γ(K + M_ω), or one restriction round trip with the γ-combined
+        mass coefficient; the plane or coefficient is formed once per
+        solve."""
         if self._ell is not None:
-            return lambda v: self._ell.mult_combined(v, 1.0, gamma)
+            return self._ell.combined(1.0, gamma).mult
         restr = self.restr
         if self._aff is not None:
             dm = self._dm + gamma * self._dw
@@ -372,7 +383,7 @@ class BioheatOperator:
     def _A_apply(self, v):
         """(K_k + M_ω) v."""
         if self._ell is not None:
-            return self._ell.mult1(v)
+            return self._ell_A.mult(v)
         if self._aff is not None:
             return self.restr.mult_transpose_t(
                 lanemajor.affine_mass_diffusion_apply(

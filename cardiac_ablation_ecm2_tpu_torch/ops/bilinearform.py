@@ -16,7 +16,8 @@ The quadrature and precision are the JAX package's: the space's rule
 contracted in float64 against the float64 basis, diffusion from the
 unpacked ``diffusion.setup``.  The element matrices are computed with torch
 on the operator's device, in chunks of elements; duplicate (row, column)
-entries are summed there after a key sort, and the canonical CSR (sorted
+entries are summed there in a fixed order (a stable key sort and the
+sorted segment-sum, :func:`sum_duplicates`), and the canonical CSR (sorted
 columns, exact zeros dropped as scipy's sum ``0 + A`` drops them) comes back
 to the host.  Only simplex (dense-basis) spaces are covered: they are the
 ones the assembled-ELL path runs.
@@ -37,12 +38,30 @@ from ..fem.geom_factors import compute_geometric_factors
 from ..fem.quadinterp import DeviceBasis
 from ..utils.config import resolve_device
 from . import diffusion, lanemajor, mass
+from .block_gather import segment_sum
 from .operators import LinearOperator
 
 _KINDS = ("mass", "diffusion")
 _MODULES = {"mass": mass, "diffusion": diffusion}
 #: elements per chunk of element matrices (bounds the einsum temporaries)
 _CHUNK = 1 << 16
+
+
+def sum_duplicates(keys: torch.Tensor, vals: torch.Tensor):
+    """The sorted unique ``keys`` and, for each, the sum of its ``vals`` in
+    the order they come (the first initialises the sum): a stable sort of
+    the keys and the sorted segment-sum (``ops/block_gather.segment_sum``,
+    a kernel on the card; no atomics, so the sums repeat bit for bit).  On
+    the CPU it equals ``zeros.index_add_(0, inverse, vals)``, which adds
+    serially in the same order, bit for bit but for the sign of a zero
+    sum."""
+    if keys.numel() > torch.iinfo(torch.int32).max:
+        raise ValueError(f"{keys.numel()} entries do not fit int32 slot indices")
+    uniq, counts = torch.unique(keys, sorted=True, return_counts=True)
+    offsets = torch.zeros(len(uniq) + 1, dtype=torch.int64, device=keys.device)
+    torch.cumsum(counts, 0, out=offsets[1:])
+    slots = torch.argsort(keys, stable=True).to(torch.int32)
+    return uniq, segment_sum(vals.contiguous(), slots, offsets)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -197,9 +216,7 @@ class BilinearForm:
                                                        G, q, G)
         gm = torch.as_tensor(fes.gather_map, dtype=torch.int64, device=dev)
         keys = (gm[:, :, None] * n + gm[:, None, :]).reshape(-1)
-        uniq, inv = torch.unique(keys, sorted=True, return_inverse=True)
-        vals = torch.zeros(len(uniq), dtype=torch.float64, device=dev)
-        vals.index_add_(0, inv, Ae.reshape(-1))
+        uniq, vals = sum_duplicates(keys, Ae.reshape(-1))
         indptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
         indptr[1:] = torch.cumsum(torch.bincount(uniq // n, minlength=n), 0)
         A = sp.csr_matrix((vals.cpu().numpy(), (uniq % n).int().cpu().numpy(),

@@ -5,21 +5,19 @@ The bioheat stage operator (M_ρc + γ(K + M_ω)) on tets is exactly this
 shape: both matrices share the FE connectivity pattern, γ changes per solve.
 The contract is the JAX package's: natural row and column numbering in and
 out, a sentinel column reads 0, nothing is scattered.  The layout is the
-port's own, a sliced ELL that fits a GPU:
+port's own, SELL-32-σ, a sliced ELL that fits a GPU warp:
 
-* rows are grouped by their nnz into width buckets, one per 8 entries up
-  to 128 (then the widest row); a bucket keeps its rows in natural order
-  and is as wide as its widest row, J_b.  On the order-2 tet stencils that
-  pads the slots by 10% (JAX's edges 8, 16, 24, 32, 48, 64, 96, 128: 17%);
-* bucket b holds int32 column planes (J_b, n_b) (sentinel n in the padding),
-  the two aligned weight planes, and the natural row id of each of its rows,
-  so the kernel writes every output row once and nothing unpermutes.
+* rows are sorted by their nnz within windows of ``SIGMA`` rows (natural
+  order among equal widths, so the x gathers stay local) and cut into
+  slices of 32 rows; a slice is as wide as its widest row, J_s;
+* slice s holds int32 column planes (J_s, 32) (sentinel n in the padding)
+  and the two aligned weight planes, plane-major from ``slice_ptr[s]``, and
+  ``row_ids`` the natural row of every sorted row, so the kernel writes
+  every output row once and nothing unpermutes.
 
-The planes of all buckets are concatenated, widest bucket first: its
-blocks are scheduled first, so the long rows do not trail at the end of
-the launch (PERF.md).
-``meta`` (nbuckets, 5) int64 holds each bucket's row offset, rows, width,
-first slot and first block.
+:meth:`MultiELLPair.combined` forms the weight plane c0·w0 + c1·w1 once
+(a solve's stage operator, or one ``mult_combined`` call);
+:class:`CombinedELL` applies it, streaming one weight plane per entry.
 
 :func:`ell_spmv` dispatches on the device of ``x``: a CUDA tensor runs the
 hand-written kernel ``csrc/ell_spmv.cu`` (built with nvcc for ``sm_90a``
@@ -34,7 +32,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import os
-from typing import Tuple
 
 import numpy as np
 import torch
@@ -46,7 +43,10 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 _LIB = None
 #: rows per CUDA block; the kernel checks it equals its own constant
 ROWS_PER_BLOCK = 256
-BUCKET_EDGES = tuple(range(8, 129, 8))
+#: rows of one slice: a warp
+SLICE = 32
+#: rows of one sorting window
+SIGMA = 4096
 
 
 def build() -> ctypes.CDLL:
@@ -56,12 +56,12 @@ def build() -> ctypes.CDLL:
         from ..utils.native import build_cuda
 
         lib = build_cuda(_SRC, "ell_spmv")
-        ptrs = [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 5
-        for name, real in (("ell_spmv_f32", ctypes.c_float),
-                           ("ell_spmv_f64", ctypes.c_double)):
+        for name in ("ell_spmv_f32", "ell_spmv_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = ptrs + [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                                  real, real, ctypes.c_void_p, ctypes.c_void_p]
+            fn.argtypes = ([ctypes.c_void_p, ctypes.c_int64]
+                           + [ctypes.c_void_p] * 4
+                           + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+                              ctypes.c_void_p])
             fn.restype = ctypes.c_int
         lib.ell_spmv_error_string.argtypes = [ctypes.c_int]
         lib.ell_spmv_error_string.restype = ctypes.c_char_p
@@ -69,19 +69,37 @@ def build() -> ctypes.CDLL:
     return _LIB
 
 
+def sell_layout(nnz: np.ndarray):
+    """SELL-32-σ of rows with ``nnz`` entries: the sorted order of the rows
+    (by width, descending, within windows of ``SIGMA`` rows; stable), the
+    width of each slice of 32 sorted rows and the (nslices + 1,) slot
+    offsets of the slices."""
+    nnz = np.asarray(nnz, dtype=np.int64)
+    n = nnz.size
+    top = int(nnz.max(initial=0))
+    key = (np.arange(n, dtype=np.int64) // SIGMA) * (top + 1) + (top - nnz)
+    order = np.argsort(key, kind="stable")
+    nslices = -(-n // SLICE)
+    padded = np.zeros(nslices * SLICE, dtype=np.int64)
+    padded[:n] = nnz[order]
+    widths = padded.reshape(nslices, SLICE).max(axis=1)
+    slice_ptr = np.zeros(nslices + 1, dtype=np.int64)
+    np.cumsum(widths * SLICE, out=slice_ptr[1:])
+    return order, widths, slice_ptr
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class MultiELLPair:
-    """A pair of n×n matrices in sliced-ELL form on one device."""
+    """A pair of n×n matrices in SELL-32-σ form on one device."""
 
     n: int
     nnz: int                  # entries of the union pattern
-    cols: torch.Tensor        # (slots,) int32, plane-major per bucket
+    cols: torch.Tensor        # (slots,) int32, plane-major per slice
     w0: torch.Tensor          # (slots,) weights of M0
     w1: torch.Tensor          # (slots,) weights of M1
-    row_ids: torch.Tensor     # (n,) int32 natural row of each bucket row
-    meta: torch.Tensor        # (nbuckets, 5) int64 on the device
-    buckets: Tuple[Tuple[int, int, int, int, int], ...]   # meta on the host
-    nblocks: int
+    row_ids: torch.Tensor     # (n,) int32 natural row of each sorted row
+    slice_ptr: torch.Tensor   # (nslices + 1,) int64 first slot of each slice
+    max_width: int
     diag0: torch.Tensor       # (n,) natural diagonals of each matrix
     diag1: torch.Tensor
 
@@ -111,53 +129,50 @@ class MultiELLPair:
             out[np.searchsorted(pkeys, rows * big + X.indices)] = X.data
             return out
 
-        d0, d1 = aligned(M0), aligned(M1)
         nnz = np.diff(P.indptr).astype(np.int64)
-        top = int(nnz.max(initial=0))
-        edges = np.asarray([e for e in BUCKET_EDGES if e < top] + [top])
-        bidx = np.searchsorted(edges, nnz, side="left")
-        cols, w0, w1, row_ids, meta = [], [], [], [], []
-        row0 = slot0 = blk0 = 0
-        for b in reversed(range(len(edges))):
-            rows = np.nonzero(bidx == b)[0]
-            nb = len(rows)
-            if nb == 0:
-                continue
-            nnzr = nnz[rows]
-            J = max(int(nnzr.max()), 1)
-            rep = np.repeat(np.arange(nb), nnzr)
-            slot = np.arange(int(nnzr.sum())) - np.repeat(
-                np.cumsum(nnzr) - nnzr, nnzr)
-            pos = np.repeat(P.indptr[rows], nnzr) + slot
-            c = np.full((J, nb), n, dtype=np.int32)
-            c[slot, rep] = P.indices[pos]
-            cols.append(c.reshape(-1))
-            for w, d in ((w0, d0), (w1, d1)):
-                v = np.zeros((J, nb), dtype=np.float64)
-                v[slot, rep] = d[pos]
-                w.append(v.reshape(-1))
-            row_ids.append(rows.astype(np.int32))
-            meta.append((row0, nb, J, slot0, blk0))
-            row0 += nb
-            slot0 += J * nb
-            blk0 += -(-nb // ROWS_PER_BLOCK)
+        order, widths, slice_ptr = sell_layout(nnz)
+        # slot of entry k of sorted row r: slice_ptr[r // 32] + 32 k + r % 32
+        nnz_s = nnz[order]
+        sorted_row = np.repeat(np.arange(n, dtype=np.int64), nnz_s)
+        k = np.arange(P.nnz, dtype=np.int64) - np.repeat(np.cumsum(nnz_s) - nnz_s,
+                                                         nnz_s)
+        slot = slice_ptr[sorted_row // SLICE] + SLICE * k + sorted_row % SLICE
+        pos = np.repeat(P.indptr[order], nnz_s) + k
+        nslots = int(slice_ptr[-1])
+        cols = np.full(nslots, n, dtype=np.int32)
+        cols[slot] = P.indices[pos]
 
-        def dev(parts, dtype):
-            a = np.concatenate(parts) if parts else np.zeros(0)
-            return torch.as_tensor(a).to(device=device, dtype=dtype)
+        def plane(d):
+            w = np.zeros(nslots, dtype=np.float64)
+            w[slot] = d[pos]
+            return torch.as_tensor(w).to(device=device, dtype=dt)
 
         return MultiELLPair(
-            n=n, nnz=int(P.nnz), cols=dev(cols, torch.int32), w0=dev(w0, dt),
-            w1=dev(w1, dt), row_ids=dev(row_ids, torch.int32),
-            meta=torch.as_tensor(np.asarray(meta, np.int64).reshape(-1, 5),
-                                 device=device),
-            buckets=tuple(meta), nblocks=blk0,
+            n=n, nnz=int(P.nnz), cols=torch.as_tensor(cols, device=device),
+            w0=plane(aligned(M0)), w1=plane(aligned(M1)),
+            row_ids=torch.as_tensor(order.astype(np.int32), device=device),
+            slice_ptr=torch.as_tensor(slice_ptr, device=device),
+            max_width=int(widths.max(initial=0)),
             diag0=torch.as_tensor(M0.diagonal(), dtype=dt, device=device),
             diag1=torch.as_tensor(M1.diagonal(), dtype=dt, device=device))
 
+    @property
+    def padding(self) -> float:
+        """Padding slots over the pattern's entries."""
+        return self.cols.numel() / max(self.nnz, 1) - 1.0
+
+    def combined(self, c0, c1) -> "CombinedELL":
+        """The one-plane operator c0·M0 + c1·M1, its weights formed on the
+        pair's device as fl(fl(c0·w0) + fl(c1·w1)), the rounded operations
+        of the JAX kernel's per-entry weights; ``c0``/``c1`` are rounded to
+        the working type."""
+        c0t, c1t = (torch.tensor(c, dtype=self.w0.dtype, device=self.w0.device)
+                    for c in (c0, c1))
+        return CombinedELL(pair=self, w=c0t * self.w0 + c1t * self.w1)
+
     def mult_combined(self, x: torch.Tensor, c0, c1) -> torch.Tensor:
-        """(c0·M0 + c1·M1) x."""
-        return ell_spmv(self, x, c0, c1)
+        """(c0·M0 + c1·M1) x through a plane formed for this call."""
+        return self.combined(c0, c1).mult(x)
 
     def mult0(self, x: torch.Tensor) -> torch.Tensor:
         return self.mult_combined(x, 1.0, 0.0)
@@ -166,45 +181,64 @@ class MultiELLPair:
         return self.mult_combined(x, 0.0, 1.0)
 
 
-def _check(pair: MultiELLPair, x: torch.Tensor):
+@dataclasses.dataclass(frozen=True, eq=False)
+class CombinedELL:
+    """One weight plane on a pair's SELL pattern (``MultiELLPair.combined``)."""
+
+    pair: MultiELLPair
+    w: torch.Tensor           # (slots,) weights c0·w0 + c1·w1
+
+    def mult(self, x: torch.Tensor) -> torch.Tensor:
+        return ell_spmv(self, x)
+
+
+def _check(A, x: torch.Tensor):
+    if not isinstance(A, CombinedELL):
+        raise ValueError("ell_spmv applies a weight plane "
+                         "(MultiELLPair.combined), not a pair")
+    pair, w = A.pair, A.w
     if x.shape != (pair.n,):
         raise ValueError(f"x must have shape ({pair.n},), got {tuple(x.shape)}")
-    if x.device != pair.w0.device or x.dtype != pair.w0.dtype:
-        raise ValueError(f"x is {x.dtype} on {x.device}, the pair "
-                         f"{pair.w0.dtype} on {pair.w0.device}")
+    if x.device != w.device or x.dtype != w.dtype:
+        raise ValueError(f"x is {x.dtype} on {x.device}, the weights "
+                         f"{w.dtype} on {w.device}")
+    return pair, w
 
 
-def ell_spmv_plain(pair: MultiELLPair, x: torch.Tensor, c0, c1) -> torch.Tensor:
-    """The plain PyTorch version, on any device: per bucket, the combined
-    weights c0·w0 + c1·w1 times the gathered x (a sentinel column reads the
-    zero appended to x), then the planes summed one by one in the kernel's
-    order; the bucket's sums go to their natural rows."""
-    _check(pair, x)
-    c0 = torch.tensor(c0, dtype=x.dtype, device=x.device)
-    c1 = torch.tensor(c1, dtype=x.dtype, device=x.device)
-    xp = torch.cat([x, x.new_zeros(1)])
+def ell_spmv_plain(A: CombinedELL, x: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version, on any device.  Level j of every sorted
+    row whose slice is wider than j: its weight times the gathered x (a
+    sentinel column reads the zero appended to x), added in order
+    j = 0, 1, ... (level 0 initialises); the row sums go to their natural
+    rows."""
+    pair, w = _check(A, x)
     y = torch.empty_like(x)
-    for row0, nb, J, slot0, _blk0 in pair.buckets:
-        s = slice(slot0, slot0 + J * nb)
-        p = ((c0 * pair.w0[s] + c1 * pair.w1[s])
-             * xp.index_select(0, pair.cols[s])).view(J, nb)
-        acc = p[0]
-        for j in range(1, J):
-            acc = acc + p[j]
-        y[pair.row_ids[row0:row0 + nb].long()] = acc
+    if pair.n == 0:
+        return y
+    xp = torch.cat([x, x.new_zeros(1)])
+    r = torch.arange(pair.n, device=x.device)
+    base = pair.slice_ptr[r // SLICE] + r % SLICE
+    width = (pair.slice_ptr[r // SLICE + 1] - pair.slice_ptr[r // SLICE]) // SLICE
+    last = max(pair.cols.numel() - 1, 0)
+    acc = torch.zeros_like(x)
+    for j in range(pair.max_width):
+        q = torch.clamp(base + SLICE * j, max=last)
+        p = w[q] * xp.index_select(0, pair.cols[q])
+        acc = torch.where(width > j, p if j == 0 else acc + p, acc)
+    y[pair.row_ids.long()] = acc
     return y
 
 
-def ell_spmv(pair: MultiELLPair, x: torch.Tensor, c0, c1) -> torch.Tensor:
-    """``(c0·M0 + c1·M1) x`` with ``c0``/``c1`` rounded to the working type.
+def ell_spmv(A: CombinedELL, x: torch.Tensor) -> torch.Tensor:
+    """``A x`` for a weight plane ``A`` (:meth:`MultiELLPair.combined`).
 
     CUDA tensors launch the kernel (and count the launch in
     ``ell_spmv.launches``); CPU tensors take :func:`ell_spmv_plain`."""
     if x.device.type == "cpu":
-        return ell_spmv_plain(pair, x, c0, c1)
+        return ell_spmv_plain(A, x)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check(pair, x)
+    pair, w = _check(A, x)
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     fns = {torch.float32: "ell_spmv_f32", torch.float64: "ell_spmv_f64"}
@@ -216,10 +250,9 @@ def ell_spmv(pair: MultiELLPair, x: torch.Tensor, c0, c1) -> torch.Tensor:
     lib = build()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = getattr(lib, fns[x.dtype])(
-        x.data_ptr(), pair.n, pair.cols.data_ptr(), pair.w0.data_ptr(),
-        pair.w1.data_ptr(), pair.row_ids.data_ptr(), pair.meta.data_ptr(),
-        len(pair.buckets), pair.nblocks, ROWS_PER_BLOCK, float(c0), float(c1),
-        y.data_ptr(), stream)
+        x.data_ptr(), pair.n, pair.cols.data_ptr(), w.data_ptr(),
+        pair.row_ids.data_ptr(), pair.slice_ptr.data_ptr(), pair.n,
+        ROWS_PER_BLOCK, y.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError("ell_spmv kernel launch failed: "
                            + lib.ell_spmv_error_string(rc).decode())

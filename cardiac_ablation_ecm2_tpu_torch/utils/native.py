@@ -32,8 +32,9 @@ def compile_once(cmd_prefix, src: str, kind: str, stem: str) -> str:
     """Compile ``src`` into ``build/<kind>/<stem>-<hash>.so`` unless that file
     exists; the name carries the source's hash so an edited source
     rebuilds.  Concurrent compilations (parallel test workers) each write
-    a private temporary file and rename it into place.  Returns the library
-    path; raises
+    a private temporary file and rename it into place; the compiler's
+    output goes to ``<stem>-<hash>.log`` beside the library.  Returns the
+    library path; raises
     ``subprocess.CalledProcessError`` with the compiler's output on failure."""
     with open(src, "rb") as f:
         digest = hashlib.sha1(f.read()).hexdigest()[:12]
@@ -44,8 +45,11 @@ def compile_once(cmd_prefix, src: str, kind: str, stem: str) -> str:
         return out
     tmp = f"{out}.{os.getpid()}.tmp"
     try:
-        subprocess.run([*cmd_prefix, src, "-o", tmp], check=True,
-                       capture_output=True, text=True, timeout=600)
+        proc = subprocess.run([*cmd_prefix, src, "-o", tmp], check=True,
+                              capture_output=True, text=True, timeout=600)
+        with open(f"{out}.{os.getpid()}.log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(f"{out}.{os.getpid()}.log", out[:-3] + ".log")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -55,15 +59,20 @@ def compile_once(cmd_prefix, src: str, kind: str, stem: str) -> str:
 
 def build_cuda(src: str, stem: str) -> ctypes.CDLL:
     """Compile one CUDA source with nvcc for Hopper (``sm_90a``) into a
-    shared library with a plain C interface, and load it with ctypes.
-    Raises when nvcc is missing: there is no CPU continuation."""
+    shared library with a plain C interface, and load it with ctypes; the
+    library's ``build_log`` holds ptxas' report of each kernel (registers,
+    spills, shared memory).  Raises when nvcc is missing: there is no CPU
+    continuation."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
         raise RuntimeError(f"nvcc not found: {os.path.basename(src)} cannot be built")
     path = compile_once(
         [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-         "-shared", "-Xcompiler", "-fPIC"], src, "cuda", stem)
-    return ctypes.CDLL(path)
+         "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"], src, "cuda", stem)
+    lib = ctypes.CDLL(path)
+    log = path[:-3] + ".log"
+    lib.build_log = open(log).read() if os.path.exists(log) else ""
+    return lib
 
 
 def lib() -> ctypes.CDLL:

@@ -8,37 +8,52 @@ Phases, in order; any failure raises and the exit code is non-zero:
 0. Device: a CUDA device must be visible; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
 1. Build: the host setup library (g++) and the four CUDA sources,
-   gather-sum, sliced-ELL SpMV, fused diffusion apply and the probe
-   gathers (one nvcc each, ``sm_90a``, started together), from the sources
-   in this checkout.
-2. Kernel against its plain PyTorch version on the card: random planes
-   with sentinels (J = 1 and 8, float32 and float64), then the restriction
-   planes of the 995,336-hex mesh in all four layouts.  All must be bitwise
-   equal; prints the median CUDA-event time of each next to the plain
-   version's and the achieved bandwidth (counting index reads, gathered
-   reads of live indices and output writes).
+   gather-sum (with the transposing gather and the segment-sum), SELL
+   SpMV, fused diffusion apply and the probe gathers (one nvcc each,
+   ``sm_90a``, started together), from the sources in this checkout;
+   prints ptxas' registers, spills and shared memory of the restriction
+   and SpMV kernels.
+2. Restriction kernels against their plain PyTorch versions on the card:
+   random planes with sentinels (J = 1 and 8), a random transposing gather
+   (a partial last tile, sentinels) and a random segment-sum (−0.0
+   sources, empty segments), float32 and float64; then the maps of the
+   995,336-hex mesh in all four layouts (L→E element-major on the
+   one-plane gather, L→E into (nd, ne) on the transposing gather, E→L from
+   either layout on the segment-sum), float32 and float64.  All must be
+   bitwise equal; prints the median CUDA-event time of each next to the
+   plain version's and the library call's (``index_select``,
+   ``index_add_``), the bound under the least-work count (map, source and
+   output once) beside the old count (every index plane), and the round
+   trip of one hex CG apply (L→E into (nd, ne), E→L from it).
 3. End to end, kernel path against plain path: cardiac hex n=16 in float64,
    three SDIRK33 steps on CUDA and on CPU tensors; θ must agree to 1e-10
    relative and every stage solve must take the same number of CG
-   iterations.
+   iterations; prints the CPU side's thread count beside the per-array
+   differences.
 4. Main path: the benchmark's implicit Pennes-bioheat step on the cardiac
    hex mesh n=126 (995,336 hexes, 8,092,657 dofs, order 2, float32): one
    warm-up step and two timed steps, the run MFEM's reference program timed
    (``tools/mfem_bioheat_bench.cpp``, ``bench_baseline.json``).  θ_max must
    lie within 2e-3 relative of MFEM's 1.21339844, CG iterations per solve
    within 16 ± 2, and the gather kernel and the fused diffusion kernel (the
-   element-major residual) must have launched; after the run, the fused
+   element-major residual), the transposing gather and the segment-sum (the
+   stage apply's restriction) must have launched; after the run, the fused
    kernel is held to its plain version on this operator's own diffusion
    qdata (ne = 995,336, a last tile of 8 elements) as in [8].
 5. Tet kernels against their plain versions on the card, at the shapes of
-   the 956,820-tet mesh (n=66): the gather kernel on its E→L planes (up to
-   46 multiplicity planes, float32 and float64, bitwise equal); the ELL
-   kernel on the assembled pair in float32 and float64 with c0 = 1 and
-   c1 = γ of an SDIRK33 stage, random x.  Bitwise equal (both take the same
-   rounded operations in the same order); prints the median CUDA-event time
-   of the kernel, of the plain version and of cuSPARSE (``torch.mv`` on the
-   combined CSR matrix, timed as a yardstick only), the bytes moved, GB/s
-   and the bound.
+   the 956,820-tet mesh (n=66): its E→L as 46 multiplicity planes on the
+   gather-sum and as the segment-sum (float32 and float64, bitwise equal,
+   ``index_add_`` as the library call); FULL assembly of the pair twice,
+   bitwise equal (no float atomics); the SELL SpMV on the assembled pair in
+   float32 and float64 with c0 = 1 and c1 = γ of an SDIRK33 stage, random
+   x: the kernel on the stage plane bitwise equal to its plain version
+   (the same rounded operations in the same order).  Prints the padding,
+   the packing seconds, the median CUDA-event time of the kernel, of
+   forming the stage plane, of the plain version and of cuSPARSE
+   (``torch.mv`` on the combined CSR matrix with int64 and with int32
+   indices, timed as a yardstick only), the bytes moved, GB/s and the bound under the
+   least-work count (one matrix's entries, row ids, x and y once) beside
+   the old count (both weight planes).
 6. Tet end to end: cardiac tet n=12 in float64 with the assembled ELL,
    three steps on CUDA and on CPU tensors (θ within 1e-10 relative, equal CG
    iterations per stage); cardiac tet n=32 in float32 on CUDA, θ_max within
@@ -51,7 +66,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    assembly run (``bench_baseline.json``): host and device setup seconds,
    one warm-up and two timed steps, θ_max within 2e-3 relative of MFEM's
    1.19519539, CG iterations per solve within 15% of 39.78, and the ELL
-   kernel must have launched.
+   kernel must have launched; prints the host packing seconds beside the
+   width-bucket layout's 9.77 s and the peak device memory.
 8. Fused diffusion kernel against its plain PyTorch version (the einsum
    chain) on the card, within 1e-5·max|y| in float32 and 1e-12·max|y| in
    float64: random inputs at ne = 4,099 for every (n1, nq1) it takes, in
@@ -104,11 +120,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
    two timed steps, one timed coupled step with its re-solve; holds the RF
    solve's true residual ≤ 1e-5, the delivered power P equal to ΦᵀAΦ of
    the unconstrained operator within 1e-4, T finite with T_max > T_a, Ω
-   finite, ≥ 0 and non-decreasing, and launches of the gather-sum and the
-   fused diffusion kernels.  No MFEM reference exists for the coupled app.
+   finite, ≥ 0 and non-decreasing, and launches of the gather-sum, the
+   transposing gather, the segment-sum and the fused diffusion kernels.  No MFEM reference exists for the coupled app.
 
 The last two lines of standard output are one JSON object describing the
-kernels and one JSON object with the device.
+kernels and one JSON object with the device.  The ``gather_sum`` entry's
+``ms`` is its element-major L→E; its ``round_trip_*`` fields are the hex
+CG apply's restriction round trip (``mult_t`` + ``mult_transpose_t``),
+which that entry's ``ms`` measured before the (nd, ne) directions had
+kernels of their own.
 """
 
 from __future__ import annotations
@@ -153,6 +173,12 @@ KERNELS = {
     "gather_sum": dict(
         source="cardiac_ablation_ecm2_tpu_torch/csrc/gather_sum.cu",
         replaces="cardiac_ablation_ecm2_tpu/ops/block_gather.py:170"),
+    "gather_transpose": dict(
+        source="cardiac_ablation_ecm2_tpu_torch/csrc/gather_sum.cu",
+        replaces="cardiac_ablation_ecm2_tpu/ops/block_gather.py:170"),
+    "segment_sum": dict(
+        source="cardiac_ablation_ecm2_tpu_torch/csrc/gather_sum.cu",
+        replaces="cardiac_ablation_ecm2_tpu/ops/block_gather.py:170"),
     "ell_spmv": dict(
         source="cardiac_ablation_ecm2_tpu_torch/csrc/ell_spmv.cu",
         replaces="cardiac_ablation_ecm2_tpu/ops/ell.py:118"),
@@ -172,6 +198,8 @@ KERNELS = {
         replaces="benchmarks/gather_micro4.py:121",
         also_replaces=["benchmarks/gather_micro4.py:163"]),
 }
+#: the restriction's kernels, one CUDA source
+RESTRICTION_KERNELS = ("gather_sum", "gather_transpose", "segment_sum")
 #: the probe kernels; take_flat (probe p1, benchmarks/gather_micro2.py:80)
 #: is one launch of gather_sum
 PROBE_KERNELS = ("take_along_rows", "take_along_lanes", "take_rows")
@@ -196,6 +224,11 @@ def k_of_T(Tq):
 def check(cond, what):
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def bits(t):
+    """The tensor's bit patterns, for bitwise comparisons."""
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
 
 
 def source(x):
@@ -250,10 +283,15 @@ def phase_build():
     t0 = time.perf_counter()
     builds = (native.lib, bg.build, ell.build, fd.build, gp.build)
     with ThreadPoolExecutor(len(builds)) as pool:
-        for f in [pool.submit(b) for b in builds]:
-            f.result()
+        libs = [f.result() for f in [pool.submit(b) for b in builds]]
     print(f"[1] build: host library and four CUDA sources in parallel, "
           f"{time.perf_counter() - t0:.2f} s")
+    for name, lib in (("gather_sum.cu", libs[1]), ("ell_spmv.cu", libs[2])):
+        report = [ln.split("ptxas info    : ", 1)[-1] for ln in
+                  getattr(lib, "build_log", "").splitlines()
+                  if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+        print(f"[1] ptxas -v, {name}: " + ("; ".join(report) if report else
+                                            "not rebuilt in this run"))
 
 
 class KernelCheck:
@@ -261,71 +299,140 @@ class KernelCheck:
 
     def __init__(self, dev):
         self.dev = dev
-        self.max_abs_err = 0.0
+        self.max_abs_err = {}
+        self.times = {}
         self.round_trip = {}
 
-    def compare(self, label, src, idx, timed=False, library=None, tag="[2]"):
-        """Kernel against plain; with ``timed``, also the bound (index
-        planes, source and output each moved once) and, where given, the
-        time of the ``library`` call computing the same function."""
-        from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
-
-        out = bg.gather_sum(src, idx)
-        ref = bg.gather_sum_plain(src, idx)
+    def compare(self, name, label, kernel, plain, args, least=None, old=None,
+                library=None, tag="[2]"):
+        """``kernel(*args)`` against ``plain(*args)``, bitwise.  With
+        ``least`` (the least bytes of the call: map, source and output
+        once), also the median times of kernel, plain version and
+        ``library`` (one PyTorch call computing the same function), and the
+        bound at the card's HBM rate under the least-work count and, where
+        given, under the ``old`` count.  Returns the kernel's output."""
+        out = kernel(*args)
+        ref = plain(*args)
         torch.cuda.synchronize()
-        self.max_abs_err = max(self.max_abs_err,
-                               float((out - ref).abs().max()))
-        bits = torch.int64 if src.dtype == torch.float64 else torch.int32
-        check(torch.equal(out.view(bits), ref.view(bits)),
-              f"{label}: kernel bitwise equal to plain")
-        msg = f"{tag} {label}: J={idx.shape[0]} nout={idx.shape[1]} bitwise equal"
-        if timed:
-            ms = time_ms(lambda: bg.gather_sum(src, idx))
-            plain_ms = time_ms(lambda: bg.gather_sum_plain(src, idx))
-            live = int((idx < src.shape[0]).sum())
-            nbytes = idx.numel() * 4 + (live + idx.shape[1]) * src.element_size()
-            bound = (idx.numel() * 4 + (src.shape[0] + idx.shape[1])
-                     * src.element_size()) / HBM_BYTES_PER_S * 1e3
+        self.max_abs_err[name] = max(self.max_abs_err.get(name, 0.0),
+                                     float((out - ref).abs().max()))
+        check(torch.equal(bits(out), bits(ref)),
+              f"{label}: {name} bitwise equal to plain")
+        msg = f"{tag} {label}: {name} bitwise equal to plain"
+        if least is not None:
+            ms = time_ms(lambda: kernel(*args))
+            plain_ms = time_ms(lambda: plain(*args))
             lib_ms = time_ms(library) if library is not None else None
-            msg += (f"; kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), "
-                    f"plain {plain_ms:.4f} ms ({nbytes / plain_ms / 1e6:.1f} GB/s)"
-                    f", {nbytes / 1e9:.3f} GB moved; bound {bound:.4f} ms")
+            bound = least / HBM_BYTES_PER_S * 1e3
+            msg += (f"; kernel {ms:.4f} ms ({least / ms / 1e6:.1f} GB/s of least "
+                    f"work), plain {plain_ms:.4f} ms")
             if lib_ms is not None:
-                msg += f"; library {lib_ms:.4f} ms"
-            self.round_trip[label] = (ms, plain_ms, bound, lib_ms)
+                msg += f", library {lib_ms:.4f} ms"
+            msg += f"; least work {least / 1e6:.1f} MB, bound {bound:.4f} ms"
+            old_bound = None
+            if old is not None:
+                old_bound = old / HBM_BYTES_PER_S * 1e3
+                msg += f" (old count {old / 1e6:.1f} MB, {old_bound:.4f} ms)"
+            self.times[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                     bound_ms=bound, old_bound_ms=old_bound)
         print(msg)
+        return out
+
+
+def restriction_bytes(ne, nd, ndof, elsize, planes=None):
+    """Least bytes of one restriction direction (the (ne, nd) int32 map or
+    slot list, the source and the output, each once) and, with ``planes``
+    (the E→L multiplicity planes), the old count: every (planes, ndof)
+    index, the source and the output."""
+    least = ne * nd * 4 + (ne * nd + ndof) * elsize
+    old = None if planes is None else planes * ndof * 4 + (ne * nd + ndof) * elsize
+    return least, old
 
 
 def phase_kernel_random(kc):
+    from cardiac_ablation_ecm2_tpu_torch.fem.restriction import scatter_slots
+    from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
+
     rng = np.random.default_rng(0)
     nsrc, nout = 1_000_003, 4_000_037
+    flat = rng.integers(0, nsrc, nout)
+    flat[flat % 97 == 3] += 1                    # empty segments
+    flat[:60] = 5                                # a long one
+    slots, offsets = (torch.as_tensor(a, device=kc.dev)
+                      for a in scatter_slots(flat, nsrc + 17))
+    ne = 148_151                                 # a last tile of 55 elements
     for dtype in (torch.float32, torch.float64):
+        es = torch.tensor([], dtype=dtype).element_size()
+        src = torch.as_tensor(rng.standard_normal(nsrc), dtype=dtype,
+                              device=kc.dev)
+        src[::101] = -0.0
         for J in (1, 8):
-            src = torch.as_tensor(rng.standard_normal(nsrc), dtype=dtype,
-                                  device=kc.dev)
-            src[::101] = -0.0
             idx = torch.as_tensor(rng.integers(0, nsrc + 1, (J, nout)),
                                   dtype=torch.int32, device=kc.dev)
-            kc.compare(f"random {str(dtype)[6:]}", src, idx, timed=True)
+            kc.compare("gather_sum", f"random J={J} {str(dtype)[6:]}",
+                       bg.gather_sum, bg.gather_sum_plain, (src, idx),
+                       least=idx.numel() * 4 + (nsrc + nout) * es)
+        g = torch.as_tensor(rng.integers(0, nsrc + 1, (ne, 27)),
+                            dtype=torch.int32, device=kc.dev)
+        kc.compare("gather_transpose", f"random (ne, nd)=({ne}, 27) "
+                   f"{str(dtype)[6:]}", bg.gather_transpose,
+                   bg.gather_transpose_plain, (src, g),
+                   least=restriction_bytes(ne, 27, nsrc, es)[0])
+        e = torch.as_tensor(rng.standard_normal(nout), dtype=dtype, device=kc.dev)
+        e[::101] = -0.0
+        kc.compare("segment_sum", f"random {nout} slots into {nsrc + 17} "
+                   f"segments {str(dtype)[6:]}", bg.segment_sum,
+                   bg.segment_sum_plain, (e, slots, offsets),
+                   least=nout * 4 + (nsrc + 18) * 8 + (nout + nsrc + 17) * es)
 
 
 def phase_kernel_restriction(kc, fes):
+    """The restriction of the 995,336-hex mesh in all four layouts, float32
+    (timed) and float64; the hex CG apply's round trip."""
     from cardiac_ablation_ecm2_tpu_torch.fem.restriction import ElementRestriction
+    from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
 
     t0 = time.perf_counter()
     r = ElementRestriction(fes.gather_map, fes.ndof, kc.dev)
-    print(f"[2] restriction planes for {fes.ndof} dofs built in "
-          f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    J = int((r.offsets[1:] - r.offsets[:-1]).max())
+    print(f"[2] restriction map and slot lists for {fes.ndof} dofs built in "
+          f"{time.perf_counter() - t0:.2f} s; multiplicity up to {J}")
     gen = torch.Generator(device=kc.dev).manual_seed(1)
+    g, gT = r.g[0].long(), r.gm.T.reshape(-1).long()
+    for dtype in (torch.float32, torch.float64):
+        timed = dtype == torch.float32
+        dt = str(dtype)[6:]
+        u = torch.randn(fes.ndof, generator=gen, device=kc.dev, dtype=dtype)
+        ue = torch.randn(r.ne * r.nd, generator=gen, device=kc.dev, dtype=dtype)
+        least, old = restriction_bytes(r.ne, r.nd, r.ndof, u.element_size(), J)
+        lte = dict(least=least, old=least) if timed else {}
+        etl = dict(least=least, old=old) if timed else {}
+        kc.compare("gather_sum", f"L->E (ne,nd) {dt}", bg.gather_sum,
+                   bg.gather_sum_plain, (u, r.g),
+                   library=lambda: u.index_select(0, g), **lte)
+        kc.compare("gather_transpose", f"L->E (nd,ne) {dt}", bg.gather_transpose,
+                   bg.gather_transpose_plain, (u, r.gm),
+                   library=lambda: u.index_select(0, gT), **lte)
+        kc.compare("segment_sum", f"E->L (ne,nd) {dt}", bg.segment_sum,
+                   bg.segment_sum_plain, (ue, r.slots, r.offsets),
+                   library=lambda: torch.zeros_like(u).index_add_(0, g, ue), **etl)
+        kc.compare("segment_sum", f"E->L (nd,ne) {dt}", bg.segment_sum,
+                   bg.segment_sum_plain, (ue, r.slotsT, r.offsets),
+                   library=lambda: torch.zeros_like(u).index_add_(0, gT, ue), **etl)
+    trip = [kc.times[k] for k in ("L->E (nd,ne) float32", "E->L (nd,ne) float32")]
     u = torch.randn(fes.ndof, generator=gen, device=kc.dev)
-    ue = torch.randn(r.ne * r.nd, generator=gen, device=kc.dev)
-    kc.compare("L->E (ne,nd)", u, r.g, timed=True)
-    gT = r.gT[0].long()
-    kc.compare("L->E (nd,ne)", u, r.gT, timed=True,
-               library=lambda: u.index_select(0, gT))
-    kc.compare("E->L (ne,nd)", ue, r.s, timed=True)
-    kc.compare("E->L (nd,ne)", ue, r.sT, timed=True,
-               library=lambda: torch.zeros_like(u).index_add_(0, gT, ue))
+    kc.round_trip = {f"round_trip_{f}": sum(t[f] for t in trip)
+                     for f in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "old_bound_ms")}
+    kc.round_trip["round_trip_chained_ms"] = time_ms(
+        lambda: r.mult_transpose_t(r.mult_t(u)))
+    rt = {k[len("round_trip_"):]: v for k, v in kc.round_trip.items()}
+    print(f"[2] hex CG apply's restriction round trip (mult_t + "
+          f"mult_transpose_t), float32: {rt['ms']:.4f} ms (chained "
+          f"{rt['chained_ms']:.4f} ms), plain {rt['plain_ms']:.4f} ms, library "
+          f"{rt['library_ms']:.4f} ms; bound {rt['bound_ms']:.4f} ms least work, "
+          f"{rt['old_bound_ms']:.4f} ms old count")
 
 
 def run_steps(op, steps, dt=0.25):
@@ -353,6 +460,7 @@ def small_cuda_vs_cpu(label, fes, dev, **kw):
     rel = float((Tg - Tc).abs().max() / Tc.abs().max())
     print(f"{label} f64, {fes.ndof} dofs: CUDA vs CPU theta rel diff {rel:.3e}, "
           f"CG iterations {ops[0].cg_iterations} vs {ops[1].cg_iterations}; "
+          f"CPU threads {torch.get_num_threads()}; "
           f"second run bitwise equal to the first: CUDA "
           f"{torch.equal(Tg, Tg2)}, CPU {torch.equal(Tc, Tc2)}")
     # where the two sides part (ROADMAP Queue 3: [3] read ~8e-10 on some
@@ -412,7 +520,8 @@ def start_main_path():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    bg.gather_sum.launches = 0
+    for name in RESTRICTION_KERNELS:
+        getattr(bg, name).launches = 0
     ell.ell_spmv.launches = 0
     fd.diffusion_apply.launches = 0
     for name in PROBE_KERNELS + ("take_flat",):
@@ -425,9 +534,9 @@ def main_path_launches():
     from cardiac_ablation_ecm2_tpu_torch.ops import fused_diffusion as fd
     from cardiac_ablation_ecm2_tpu_torch.ops import gather_probes as gp
 
-    out = {"gather_sum": bg.gather_sum.launches,
-           "ell_spmv": ell.ell_spmv.launches,
-           "fused_diffusion": fd.diffusion_apply.launches}
+    out = {name: getattr(bg, name).launches for name in RESTRICTION_KERNELS}
+    out.update(ell_spmv=ell.ell_spmv.launches,
+               fused_diffusion=fd.diffusion_apply.launches)
     out.update({name: getattr(gp, name).launches
                 for name in PROBE_KERNELS + ("take_flat",)})
     return out
@@ -471,12 +580,15 @@ def phase_main(dev, mesh, fes, host_s):
     print(f"[4] s/step {s_step:.6f} (CUDA events; host clock {host_step:.6f}), "
           f"{fes.ndof / s_step:.1f} DOF/s; MFEM CPU 145.408 s/step")
     _, per_solve, rel = report_run("[4]", op, T, MFEM_THETA_MAX)
-    print(f"[4] gather-kernel launches {launches['gather_sum']}, fused "
-          f"diffusion launches {launches['fused_diffusion']}, "
-          f"max_memory_allocated {peak / 2**30:.3f} GiB")
+    print(f"[4] launches: gather_sum {launches['gather_sum']}, "
+          f"gather_transpose {launches['gather_transpose']}, segment_sum "
+          f"{launches['segment_sum']}, fused diffusion "
+          f"{launches['fused_diffusion']}; max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB")
     check(rel <= 2e-3, "theta_max within 2e-3 of MFEM")
     check(abs(per_solve - MFEM_CG_ITERS) <= 2, "CG iterations within 16 ± 2")
-    check(launches["gather_sum"] > 0, "the main path launched the gather kernel")
+    for name in RESTRICTION_KERNELS:
+        check(launches[name] > 0, f"the main path launched {name}")
     check(launches["fused_diffusion"] > 0,
           "the main path's residual launched the fused diffusion kernel")
     check_operator_diffusion("[4]", "hex n=126 K_qd", op)
@@ -497,83 +609,125 @@ def tet_space(n):
 
 
 def ell_bound(pair, elsize):
-    """Least bytes of one SpMV (column and both weights of every entry, row
-    id and output of every row, x once) and the bound at the card's HBM
-    rate, in ms; the ~5 flops per entry need far less at 67 TFLOP/s."""
-    nbytes = pair.nnz * (4 + 2 * elsize) + pair.n * (4 + 2 * elsize)
-    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+    """Least bytes of one SpMV (the int32 column and one weight of every
+    entry of one matrix; row id, x and y once per row), the old count
+    (both weight planes) and the bound of each at the card's HBM rate, in
+    ms; the ~3 flops per entry need far less at 67 TFLOP/s."""
+    least = pair.nnz * (4 + elsize) + pair.n * (4 + 2 * elsize)
+    old = pair.nnz * (4 + 2 * elsize) + pair.n * (4 + 2 * elsize)
+    return least, old, least / HBM_BYTES_PER_S * 1e3, old / HBM_BYTES_PER_S * 1e3
 
 
 def phase_tet_restriction(kc, fes):
-    """The gather kernel against its plain version on the E→L planes of the
-    n=66 tet space (up to 46 multiplicity planes), which the tet main path
-    runs in setup (right-hand side, diagonals), in float32 and float64."""
-    from cardiac_ablation_ecm2_tpu_torch.fem.restriction import ElementRestriction
+    """The n=66 tet space's E→L, which the tet main path runs in setup
+    (right-hand side, diagonals): as 46 multiplicity planes on the
+    gather-sum (the sentinel-plane form) and as the segment-sum, float32
+    and float64,
+    each bitwise equal to its plain version and the two equal in value."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.restriction import (
+        ElementRestriction,
+        scatter_planes,
+    )
+    from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
 
     r = ElementRestriction(fes.gather_map, fes.ndof, kc.dev)
+    planes = torch.as_tensor(scatter_planes(fes.gather_map.reshape(-1), fes.ndof),
+                             device=kc.dev)
+    J = planes.shape[0]
+    g = r.g[0].long()
     gen = torch.Generator(device=kc.dev).manual_seed(2)
     for dtype in (torch.float32, torch.float64):
+        dt = str(dtype)[6:]
         ue = torch.randn(r.ne * r.nd, generator=gen, device=kc.dev, dtype=dtype)
-        kc.compare(f"tet E->L (ne,nd) {str(dtype)[6:]}", ue, r.s,
-                   timed=dtype == torch.float32, tag="[5]")
+        least, old = restriction_bytes(r.ne, r.nd, r.ndof, ue.element_size(), J)
+        kw = dict(least=least, old=old) if dtype == torch.float32 else {}
+        lib = lambda: torch.zeros(r.ndof, dtype=dtype, device=kc.dev).index_add_(
+            0, g, ue)
+        a = kc.compare("gather_sum", f"tet E->L (ne,nd) on {J} planes {dt}",
+                       bg.gather_sum, bg.gather_sum_plain, (ue, planes),
+                       library=lib, tag="[5]", **kw)
+        b = kc.compare("segment_sum", f"tet E->L (ne,nd) segment-sum {dt}",
+                       bg.segment_sum, bg.segment_sum_plain,
+                       (ue, r.slots, r.offsets), library=lib, tag="[5]", **kw)
+        check(torch.equal(a, b), f"tet E->L {dt}: planes and segment-sum equal")
+
+
+def assemble_pair(fes, dev):
+    """FULL assembly of M_ρc, K and M_ω on ``dev`` (scipy CSR)."""
+    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
+
+    return [BilinearForm(fes, dev).add_domain_integrator(kind, c).assemble_matrix()
+            for kind, c in (("mass", SETTINGS["rho_c"]), ("diffusion", SETTINGS["k"]),
+                            ("mass", SETTINGS["w_cb"]))]
 
 
 def phase_ell_kernel(dev, fes):
-    """The ELL kernel against its plain version on the n=66 pair; returns
-    the float32 numbers for the kernels line."""
+    """FULL assembly twice (bitwise repeatable), then the SELL kernel on the
+    stage plane against its plain version on the n=66 pair; returns the
+    float32 numbers for the kernels line."""
     from cardiac_ablation_ecm2_tpu_torch.ops import ell
-    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
 
     t0 = time.perf_counter()
-    M = BilinearForm(fes, dev).add_domain_integrator(
-        "mass", SETTINGS["rho_c"]).assemble_matrix()
-    A = (BilinearForm(fes, dev).add_domain_integrator(
-        "diffusion", SETTINGS["k"]).assemble_matrix()
-        + BilinearForm(fes, dev).add_domain_integrator(
-            "mass", SETTINGS["w_cb"]).assemble_matrix())
-    print(f"[5] FULL assembly of M and A ({M.nnz} nnz each): "
-          f"{time.perf_counter() - t0:.2f} s")
+    M, K, Mw = assemble_pair(fes, dev)
+    t1 = time.perf_counter()
+    again = assemble_pair(fes, dev)
+    for X, Y, name in zip((M, K, Mw), again, ("M_rc", "K", "M_w")):
+        check(np.array_equal(X.indptr, Y.indptr)
+              and np.array_equal(X.indices, Y.indices)
+              and np.array_equal(X.data.view(np.int64), Y.data.view(np.int64)),
+              f"FULL assembly of {name} bitwise repeatable")
+    print(f"[5] FULL assembly of M_rc, K, M_w ({M.nnz} nnz each): "
+          f"{t1 - t0:.2f} s; assembled again: bitwise equal")
+    A = K + Mw
     rng = np.random.default_rng(7)
     x64 = rng.standard_normal(fes.ndof)
     out = {"max_abs_err": 0.0}
+    C = (M + GAMMA * A).tocsr()
+    C.sort_indices()
     for dtype in (torch.float64, torch.float32):
+        dt = str(dtype)[6:]
         t0 = time.perf_counter()
         pair = ell.MultiELLPair.from_csr_pair(M, A, dtype, dev)
         torch.cuda.synchronize()
         pair_s = time.perf_counter() - t0
         x = torch.as_tensor(x64, dtype=dtype, device=dev)
-        y = ell.ell_spmv(pair, x, 1.0, GAMMA)
-        ref = ell.ell_spmv_plain(pair, x, 1.0, GAMMA)
+        plane = pair.combined(1.0, GAMMA)
+        ref = ell.ell_spmv_plain(plane, x)
+        y1 = ell.ell_spmv(plane, x)
         torch.cuda.synchronize()
-        err = float((y - ref).abs().max())
-        out["max_abs_err"] = max(out["max_abs_err"], err)
-        bits = torch.int64 if dtype == torch.float64 else torch.int32
-        check(torch.equal(y.view(bits), ref.view(bits)),
-              f"ell_spmv {dtype}: kernel bitwise equal to plain")
-        C = (M + GAMMA * A).tocsr()
-        C.sort_indices()
-        Ct = torch.sparse_csr_tensor(
-            torch.as_tensor(C.indptr, dtype=torch.int64, device=dev),
-            torch.as_tensor(C.indices, dtype=torch.int64, device=dev),
-            torch.as_tensor(C.data, dtype=dtype, device=dev), size=C.shape)
-        lib_err = float((torch.mv(Ct, x) - y).abs().max() / y.abs().max())
-        ms = time_ms(lambda: ell.ell_spmv(pair, x, 1.0, GAMMA))
-        plain_ms = time_ms(lambda: ell.ell_spmv_plain(pair, x, 1.0, GAMMA))
-        lib_ms = time_ms(lambda: torch.mv(Ct, x))
-        nbytes, bound = ell_bound(pair, x.element_size())
-        print(f"[5] ell_spmv {str(dtype)[6:]}: n={pair.n} nnz={pair.nnz} "
-              f"slots={pair.cols.numel()} buckets (rows, width) "
-              f"{[(b[1], b[2]) for b in pair.buckets]}; pair built in "
-              f"{pair_s:.2f} s; bitwise equal to plain; cuSPARSE rel diff "
-              f"{lib_err:.2e}")
-        print(f"[5] ell_spmv {str(dtype)[6:]}: kernel {ms:.4f} ms "
-              f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
-              f"cuSPARSE torch.mv {lib_ms:.4f} ms; {nbytes / 1e9:.3f} GB "
-              f"moved, bound {bound:.4f} ms (bytes)")
+        out["max_abs_err"] = max(out["max_abs_err"], float((y1 - ref).abs().max()))
+        check(torch.equal(bits(y1), bits(ref)),
+              f"ell_spmv {dt}: kernel bitwise equal to its plain version")
+        mats = {}
+        for ib in (torch.int64, torch.int32):
+            mats[ib] = torch.sparse_csr_tensor(
+                torch.as_tensor(C.indptr, dtype=ib, device=dev),
+                torch.as_tensor(C.indices, dtype=ib, device=dev),
+                torch.as_tensor(C.data, dtype=dtype, device=dev), size=C.shape)
+        lib_err = float((torch.mv(mats[torch.int32], x) - y1).abs().max()
+                        / y1.abs().max())
+        least, old, bound, old_bound = ell_bound(pair, x.element_size())
+        print(f"[5] ell_spmv {dt}: n={pair.n} nnz={pair.nnz} slots="
+              f"{pair.cols.numel()} (padding {pair.padding:.4f}; the width "
+              f"buckets of 8 it replaced padded 0.10, from PERF.md), "
+              f"{pair.slice_ptr.numel() - 1} slices of "
+              f"{ell.SLICE}, sorting window {ell.SIGMA}, widest {pair.max_width}; "
+              f"pair packed in {pair_s:.2f} s; kernel bitwise equal to plain; "
+              f"cuSPARSE rel diff {lib_err:.2e}")
+        ms = time_ms(lambda: ell.ell_spmv(plane, x))
+        form_ms = time_ms(lambda: pair.combined(1.0, GAMMA))
+        plain_ms = time_ms(lambda: ell.ell_spmv_plain(plane, x))
+        lib_ms = {ib: time_ms(lambda: torch.mv(m, x)) for ib, m in mats.items()}
+        print(f"[5] ell_spmv {dt}: kernel {ms:.4f} ms ({least / ms / 1e6:.1f} "
+              f"GB/s of least work; forming the plane, once per solve, "
+              f"{form_ms:.4f} ms), plain {plain_ms:.4f} ms, cuSPARSE torch.mv "
+              f"int64 indices {lib_ms[torch.int64]:.4f} ms, int32 {lib_ms[torch.int32]:.4f} ms; "
+              f"least work {least / 1e6:.1f} MB, bound {bound:.4f} ms (old count "
+              f"{old / 1e6:.1f} MB, {old_bound:.4f} ms)")
         if dtype == torch.float32:
-            out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            out.update(ms=ms, plain_ms=plain_ms, library_ms=min(lib_ms.values()),
                        bound_ms=bound)
-        del pair, Ct
+        del pair, plane, mats
     return out
 
 
@@ -616,14 +770,16 @@ def phase_tet_main(dev, mesh, fes, host_s):
           f"{fes.ndof} dofs, {op._ell.nnz} nnz")
     print(f"[7] host setup: mesh {host_s[0]:.2f} s, FESpace {host_s[1]:.2f} s; "
           f"operator {setup_s:.2f} s = partial-assembly setup {sec['pa']:.2f} s "
-          f"+ FULL assembly {sec['ell_assembly']:.2f} s + ELL pair "
-          f"{sec['ell_pair']:.2f} s + restriction planes and basis")
+          f"+ FULL assembly {sec['ell_assembly']:.2f} s + ELL pair and residual "
+          f"plane {sec['ell_pair']:.2f} s (padding {op._ell.padding:.4f}) + "
+          f"restriction and basis")
     print(f"[7] s/step {s_step:.6f} (CUDA events; host clock {host_step:.6f}), "
           f"{fes.ndof / s_step:.1f} DOF/s; MFEM CPU {MFEM_TET66['s_step']} s/step")
     _, per_solve, rel = report_run("[7]", op, T, MFEM_TET66["theta_max"])
-    print(f"[7] ell-kernel launches {launches['ell_spmv']}, gather-kernel "
-          f"launches {launches['gather_sum']}, max_memory_allocated "
-          f"{peak / 2**30:.3f} GiB")
+    print(f"[7] ell-kernel launches {launches['ell_spmv']}, restriction kernel "
+          f"launches (setup) " + ", ".join(f"{k} {launches[k]}"
+                                          for k in RESTRICTION_KERNELS)
+          + f"; max_memory_allocated {peak / 2**30:.3f} GiB")
     check(rel <= 2e-3, "tet n=66 theta_max within 2e-3 of MFEM")
     check(abs(per_solve - MFEM_TET66["cg_iters"]) <= 0.15 * MFEM_TET66["cg_iters"],
           "tet n=66 CG iterations per solve within 15% of MFEM's 39.78")
@@ -814,14 +970,16 @@ def phase_lattice48(dev):
           f"s/step")
     _, per_solve, rel = report_run("[9]", op, T, JAX_LATTICE48["theta_max"],
                                    "the JAX package (f64, CPU)")
-    print(f"[9] fused diffusion launches {launches['fused_diffusion']}, gather "
-          f"launches {launches['gather_sum']}, max_memory_allocated "
+    print(f"[9] fused diffusion launches {launches['fused_diffusion']}, "
+          f"restriction kernel launches "
+          f"{sum(launches[k] for k in RESTRICTION_KERNELS)}, max_memory_allocated "
           f"{peak / 2**30:.3f} GiB")
     check(branch == JAX_LATTICE48_F32_BRANCH, "48^3 takes JAX's float32 branch")
     check(rel <= 2e-3, "48^3 theta_max within 2e-3 of the JAX package's")
     check(abs(per_solve - JAX_LATTICE48["cg_per_solve"]) <= 1,
           "48^3 CG iterations per solve within 1 of JAX's")
-    check(launches["fused_diffusion"] > 0 and launches["gather_sum"] == 0,
+    check(launches["fused_diffusion"] > 0
+          and not any(launches[k] for k in RESTRICTION_KERNELS),
           "the 48^3 residual launched the fused diffusion kernel, and no "
           "gather ran (structured restriction)")
     check_operator_diffusion("[9]", "48^3 lattice K_qd", op)
@@ -882,15 +1040,15 @@ def phase_masked(dev):
           f"MFEM CPU 145.408 s/step (carved mesh)")
     _, per_solve, rel = report_run("[10]", op, T, MFEM_THETA_MAX)
     print(f"[10] fused diffusion launches {launches['fused_diffusion']} "
-          f"(3 per step and 1 in setup), gather launches "
-          f"{launches['gather_sum']}, max_memory_allocated "
+          f"(3 per step and 1 in setup), restriction kernel launches "
+          f"{sum(launches[k] for k in RESTRICTION_KERNELS)}, max_memory_allocated "
           f"{peak / 2**30:.3f} GiB")
     check(rel <= 2e-3, "masked theta_max within 2e-3 of MFEM")
     check(abs(per_solve - MFEM_CG_ITERS) <= 2,
           "masked CG iterations within 16 ± 2")
     check(launches["fused_diffusion"] > 0,
           "the masked main path launched the fused diffusion kernel")
-    check(launches["gather_sum"] == 0,
+    check(not any(launches[k] for k in RESTRICTION_KERNELS),
           "the masked main path launched no gather (structured restriction)")
     return op, launches
 
@@ -1094,9 +1252,9 @@ def phase_ablation_main(dev, mesh, mesh_s):
           f"{sim.lesion_volume(om):.6e} m^3, P = total_power {P:.6f} W, "
           f"Phi^T A Phi {phi_a_phi:.6f} W, max_memory_allocated "
           f"{peak / 2**30:.3f} GiB")
-    print(f"[12b] gather-kernel launches {launches['gather_sum']}, fused diffusion "
-          f"launches {launches['fused_diffusion']}; no MFEM reference exists for "
-          f"the coupled app, so none is held")
+    print(f"[12b] launches: " + ", ".join(
+        f"{k} {launches[k]}" for k in RESTRICTION_KERNELS + ("fused_diffusion",))
+          + "; no MFEM reference exists for the coupled app, so none is held")
     check(res <= 1e-5, "[12b] RF true relative residual <= 1e-5")
     check(abs(P - phi_a_phi) <= 1e-4 * abs(phi_a_phi),
           "[12b] P equals Phi^T A Phi within 1e-4")
@@ -1106,8 +1264,8 @@ def phase_ablation_main(dev, mesh, mesh_s):
           "[12b] omega finite and >= 0")
     check(all(bool((b >= a).all()) for a, b in zip(oms, oms[1:])),
           "[12b] omega non-decreasing")
-    check(launches["gather_sum"] > 0 and launches["fused_diffusion"] > 0,
-          "[12b] the coupled path launched the gather and fused diffusion kernels")
+    for name in RESTRICTION_KERNELS + ("fused_diffusion",):
+        check(launches[name] > 0, f"[12b] the coupled path launched {name}")
     return launches
 
 
@@ -1157,15 +1315,28 @@ def main():
     phase_ablation_main(dev, hex_mesh, mesh_s)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    # gather_sum: the restriction round trip of one CG apply on the hex
-    # main path, L->E and E->L in the (nd, ne) layout
-    trip = [kc.round_trip[k] for k in ("L->E (nd,ne)", "E->L (nd,ne)")]
-    print(json.dumps({"kernels": [
-        dict(name="gather_sum", route="cuda", **KERNELS["gather_sum"],
-             launches=hex_launches["gather_sum"], max_abs_err=kc.max_abs_err,
-             ms=sum(t[0] for t in trip), plain_ms=sum(t[1] for t in trip),
-             bound_ms=sum(t[2] for t in trip), bound_by="bytes",
-             library_ms=sum(t[3] for t in trip)),
+    # the restriction's kernels at their hex main-path shapes, float32: the
+    # element-major L->E (the residual's), the L->E into (nd, ne) and the
+    # E->L from it (one CG apply's round trip)
+    rows = {"gather_sum": "L->E (ne,nd) float32",
+            "gather_transpose": "L->E (nd,ne) float32",
+            "segment_sum": "E->L (nd,ne) float32"}
+    restriction = [
+        dict(name=k, route="cuda", **KERNELS[k], launches=hex_launches[k],
+             max_abs_err=kc.max_abs_err[k], bound_by="bytes",
+             **{f: kc.times[label][f]
+                for f in ("ms", "plain_ms", "bound_ms", "library_ms")})
+        for k, label in rows.items()]
+    # the gather_sum entry's ms is the element-major L->E alone; before the
+    # (nd, ne) directions had kernels of their own, this entry timed the hex
+    # CG apply's round trip (mult_t + mult_transpose_t, both on gather_sum),
+    # which round_trip_* keeps like for like (now gather_transpose +
+    # segment_sum)
+    restriction[0].update(
+        measures="ms: L->E (ne,nd); round_trip_*: the hex CG apply's mult_t "
+                 "+ mult_transpose_t, as this entry's ms measured it before",
+        **kc.round_trip)
+    print(json.dumps({"kernels": restriction + [
         dict(name="ell_spmv", route="cuda", **KERNELS["ell_spmv"],
              launches=tet_launches["ell_spmv"],
              max_abs_err=ell_numbers["max_abs_err"], ms=ell_numbers["ms"],

@@ -2,23 +2,25 @@
 """Trace one implicit SDIRK33 step of the port's main paths on the GPU and
 print where the device time goes.
 
-    python3 profile_step.py [hex126] [masked126] [lattice48]
+    python3 profile_step.py [hex126] [masked126] [lattice48] [tet66]
 
 Each path is set up as ``chip_smoke.py`` sets it up (float32, order 2,
 quad_extra 0, θ form, rel_tol 1e-5): ``hex126`` the generic cardiac-hex
 path [4], ``masked126`` the masked cardiac-hex lattice [10], ``lattice48``
-bench.py's default 48³ lattice [9].  After one warm-up step, the
+bench.py's default 48³ lattice [9], ``tet66`` the assembled-ELL cardiac
+tet path [7].  After one warm-up step, the
 profiler runs through one more step (its own warm-up, not recorded, so the
 tracer is steady before the traced step's first launch) and then traces
 one step, with a ``record_function`` range around each layer (the
 lane-major stage apply, the element-major residual and, inside it, the
-mass einsums, the restriction in both directions).  Printed per path: the
+mass einsums, the restriction in both directions, the ELL stage plane
+formed once per solve).  Printed per path: the
 step's wall time, the device time and call count of each range (ranges
 nest: the residual includes its restriction and mass parts), the device
 time and launches of each of the port's own kernels (launched through
 ctypes, which the profiler ties to no range, so the ranges leave them out;
-the traced launches must equal the wrappers' own counts of the step), the
-rest of the device time (CG vector updates, dots, masks, stage
+the traced launches must equal the wrappers' own counts of the step) and
+the restriction kernels' sum, the rest of the device time (CG vector updates, dots, masks, stage
 combinations), the ten kernels with the most device time, and the
 device's busy time over the step's wall time (idle share).  Needs a CUDA
 device.
@@ -40,6 +42,7 @@ import chip_smoke as cs
 LAYERS = {}      # range name -> patched (owner, attribute)
 STAGE = "stage apply"                 # one CG apply: restriction + lane-major
 RESIDUAL = "residual (element-major)"  # restriction, diffusion kernel, mass
+PLANE = "ELL stage plane"             # c0·w0 + c1·w1, once per solve
 
 
 def _wrap(owner, attr, name):
@@ -59,6 +62,7 @@ def instrument():
     from cardiac_ablation_ecm2_tpu_torch.fem.restriction import ElementRestriction
     from cardiac_ablation_ecm2_tpu_torch.models.bioheat import BioheatOperator
     from cardiac_ablation_ecm2_tpu_torch.ops import lanemajor, mass
+    from cardiac_ablation_ecm2_tpu_torch.ops.ell import MultiELLPair
 
     stage_apply = BioheatOperator._stage_apply
 
@@ -75,6 +79,7 @@ def instrument():
     _wrap(BioheatOperator, "_apply", RESIDUAL)
     _wrap(lanemajor, "mass_diffusion_apply", "lane-major apply")
     _wrap(mass, "apply", "mass apply (einsum)")
+    _wrap(MultiELLPair, "combined", PLANE)
     for cls in (StructuredRestriction, ElementRestriction):
         for attr in ("mult", "mult_t"):
             _wrap(cls, attr, "restriction L->E")
@@ -93,7 +98,7 @@ def _on_device(e):
     leaves on the device's timeline)."""
     return (e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
-            and e.key not in LAYERS and e.key not in ("step", STAGE))
+            and e.key not in LAYERS and e.key not in ("step", STAGE, PLANE))
 
 
 def _port_kernel(key):
@@ -103,7 +108,9 @@ def _port_kernel(key):
     if "anonymous namespace" not in key and "_GLOBAL__N_" not in key:
         return None
     for name, stem in (("fused_diffusion", "diffusion_kernel"),
-                       ("gather_sum", "gather"), ("ell_spmv", "ell_spmv")):
+                       ("gather_transpose", "gather_transpose_kernel"),
+                       ("segment_sum", "segment_sum_kernel"),
+                       ("gather_sum", "gather"), ("ell_spmv", "sell_spmv")):
         if stem in key:
             return name
     return None
@@ -140,6 +147,10 @@ def build(path, dev):
         _, fes, kw, _, _ = cs.masked_space(126)
         return BioheatOperator(fes, q_met=cs.source, dtype="float32",
                                device=dev, **dict(cs.SETTINGS, **kw))
+    if path == "tet66":
+        _, fes, _ = cs.tet_space(66)
+        return BioheatOperator(fes, q_met=cs.source, dtype="float32",
+                               device=dev, assembled_apply="ell", **cs.SETTINGS)
     if path == "lattice48":
         fes = CartesianFESpace(make_cartesian_3d(48, 48, 48, cs.L, cs.L, cs.L),
                                2, (48, 48, 48), (cs.L,) * 3)
@@ -172,7 +183,7 @@ def trace(path, dev):
         launches = cs.main_path_launches()
         prof.step()
     its = op.cg_iterations[n_its:]
-    names = list(dict.fromkeys(("step", STAGE, RESIDUAL, *LAYERS)))
+    names = list(dict.fromkeys(("step", STAGE, RESIDUAL, PLANE, *LAYERS)))
     ranges = {n: [0.0, 0] for n in names}      # device µs, calls
     ported = {}                                # port kernel -> [µs, launches]
     for e in prof.events():
@@ -198,7 +209,7 @@ def trace(path, dev):
     rest = total
     for name in names[1:]:
         us, calls = ranges[name]
-        if name in (STAGE, RESIDUAL):
+        if name in (STAGE, RESIDUAL, PLANE):
             rest -= us
         print(f"  {name:28s} {us / 1e3:9.3f} ms  {us / total:6.1%}  "
               f"{calls:4d} calls")
@@ -208,6 +219,9 @@ def trace(path, dev):
               f"{n:4d} launches")
     print(f"  {'other (CG vectors, dots)':28s} {rest / 1e3:9.3f} ms  "
           f"{rest / total:6.1%}")
+    restr = [ported.get(k, [0.0, 0]) for k in cs.RESTRICTION_KERNELS]
+    print(f"  restriction kernels in the step: {sum(k[0] for k in restr) / 1e3:.3f} "
+          f"ms, {sum(k[1] for k in restr)} launches")
     kernels = sorted((e for e in prof.key_averages() if _on_device(e)),
                      key=_device_us, reverse=True)
     print("  top kernels (device ms, calls):")
@@ -218,7 +232,7 @@ def trace(path, dev):
 
 
 def main():
-    paths = sys.argv[1:] or ["hex126", "masked126", "lattice48"]
+    paths = sys.argv[1:] or ["hex126", "masked126", "lattice48", "tet66"]
     dev = cs.phase_device()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
                           "--format=csv,noheader"], capture_output=True,

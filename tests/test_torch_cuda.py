@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels on the card: the gather-sum, the
-sliced-ELL SpMV and the probe gathers bitwise equal to their plain PyTorch
-versions, the fused diffusion apply within rounding of its plain version at
-every shape it takes (and raising on one it does not), and the restriction,
+transposing gather, the segment-sum, the SELL SpMV of one weight plane
+and the probe gathers bitwise equal to their plain PyTorch versions,
+FULL assembly repeatable bit for bit, the fused diffusion apply within
+rounding of its plain version at every shape it takes (and raising on one
+it does not), and the restriction,
 the tet ELL operator, the masked cardiac-hex lattice and the coupled
 ablation app on CUDA equal to the CPU.
 Needs an NVIDIA GPU and nvcc; skips without a GPU.  This file imports no
@@ -21,7 +23,10 @@ from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
 from cardiac_ablation_ecm2_tpu_torch.fem.geometry import Geometry
 from cardiac_ablation_ecm2_tpu_torch.fem.masked_lattice import masked_lattice_essential
 from cardiac_ablation_ecm2_tpu_torch.fem.quadinterp import device_basis
-from cardiac_ablation_ecm2_tpu_torch.fem.restriction import ElementRestriction
+from cardiac_ablation_ecm2_tpu_torch.fem.restriction import (
+    ElementRestriction,
+    scatter_slots,
+)
 from cardiac_ablation_ecm2_tpu_torch.linalg import ode
 from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import (
     make_cardiac_hex_lattice,
@@ -32,6 +37,7 @@ from cardiac_ablation_ecm2_tpu_torch.models import bioheat
 from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
 from cardiac_ablation_ecm2_tpu_torch.ops import ell
 from cardiac_ablation_ecm2_tpu_torch.ops import fused_diffusion as fd
+from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
 from cardiac_ablation_ecm2_tpu_torch.utils.config import config, configure
 
 pytestmark = pytest.mark.cuda
@@ -62,6 +68,63 @@ def test_kernel_bitwise_equals_plain(cuda, dtype, J):
                                 else torch.int32),
                        ref.view(torch.int64 if dtype == torch.float64
                                 else torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ne,nd", [(1_037, 27), (4_099, 10), (300, 64), (130, 125)])
+def test_gather_transpose_bitwise_equals_plain(cuda, dtype, ne, nd):
+    """Partial last tiles, the tet and hex widths, and widths whose tile
+    is halved to fit 48 KB of shared memory (64 and 125 in float64)."""
+    rng = np.random.default_rng(ne + nd)
+    nsrc = 50_021
+    src = torch.as_tensor(rng.standard_normal(nsrc), dtype=dtype, device=cuda)
+    src[::53] = -0.0
+    g = torch.as_tensor(rng.integers(0, nsrc + 1, (ne, nd)), dtype=torch.int32,
+                        device=cuda)
+    before = bg.gather_transpose.launches
+    out = bg.gather_transpose(src, g)
+    torch.cuda.synchronize()
+    assert bg.gather_transpose.launches == before + 1
+    assert out.shape == (nd, ne)
+    assert torch.equal(_bits(out), _bits(bg.gather_transpose_plain(src, g)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_segment_sum_bitwise_equals_plain(cuda, dtype):
+    """Segments of 0 to ~60 slots, −0.0 sources."""
+    rng = np.random.default_rng(21)
+    ndof = 40_009
+    flat = rng.integers(0, ndof, 400_000)
+    flat[:60] = 17                                    # one long segment
+    flat[(flat % 101) == 5] += 1                      # dofs without a slot
+    slots, offsets = scatter_slots(flat, ndof)
+    src = torch.as_tensor(rng.standard_normal(flat.size), dtype=dtype, device=cuda)
+    src[::7] = -0.0
+    sl, off = (torch.as_tensor(a, device=cuda) for a in (slots, offsets))
+    before = bg.segment_sum.launches
+    out = bg.segment_sum(src, sl, off)
+    torch.cuda.synchronize()
+    assert bg.segment_sum.launches == before + 1
+    assert torch.equal(_bits(out), _bits(bg.segment_sum_plain(src, sl, off)))
+
+
+def test_full_assembly_repeatable_on_card(cuda):
+    """FULL assembly on the card sums duplicates with the segment-sum (no
+    float atomics): two assemblies are bitwise equal, with the CPU's
+    pattern and its data to round-off."""
+    L = 0.04
+    fes = FESpace(make_cardiac_tet_mesh(8, lengths=(L, L, L / 2),
+                                        electrode_radius=0.004), 2)
+
+    def assemble(dev):
+        return BilinearForm(fes, dev).add_domain_integrator(
+            "diffusion", 0.54).assemble_matrix()
+
+    A, B, C = assemble(cuda), assemble(cuda), assemble("cpu")
+    assert np.array_equal(A.indptr, B.indptr) and np.array_equal(A.indices, B.indices)
+    assert np.array_equal(A.data.view(np.int64), B.data.view(np.int64))
+    assert np.array_equal(A.indices, C.indices)
+    assert np.abs(A.data - C.data).max() <= 1e-12 * np.abs(C.data).max()
 
 
 def test_restriction_cuda_equals_cpu(cuda):
@@ -101,14 +164,31 @@ def test_ell_kernel_bitwise_equals_plain(cuda, dtype):
     x = torch.as_tensor(np.random.default_rng(4).standard_normal(A.shape[0]),
                         dtype=dtype, device=cuda)
     x[::89] = -0.0
-    bits = torch.int64 if dtype == torch.float64 else torch.int32
     for c0, c1 in ((1.0, 0.10896662), (0.0, 1.0), (1.0, 0.0), (-2.0, 5.0)):
+        plane = pair.combined(c0, c1)
         before = ell.ell_spmv.launches
-        y = ell.ell_spmv(pair, x, c0, c1)
+        y = ell.ell_spmv(plane, x)
         torch.cuda.synchronize()
         assert ell.ell_spmv.launches == before + 1
-        ref = ell.ell_spmv_plain(pair, x, c0, c1)
-        assert torch.equal(y.view(bits), ref.view(bits))
+        assert torch.equal(_bits(y), _bits(ell.ell_spmv_plain(plane, x)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_combined_plane_bitwise_equals_plain(cuda, dtype):
+    """``mult_combined`` on the card (a plane formed, then the kernel)
+    against the plain version on a CPU copy of the pair, bit for bit."""
+    A, B = _random_pair(20_011, 5)
+    pair = ell.MultiELLPair.from_csr_pair(A, B, dtype, cuda)
+    host = ell.MultiELLPair.from_csr_pair(A, B, dtype, "cpu")
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal(A.shape[0]),
+                        dtype=dtype)
+    x[::89] = -0.0
+    for c0, c1 in ((1.0, 0.10896662), (0.0, 1.0)):
+        before = ell.ell_spmv.launches
+        y = pair.mult_combined(x.to(cuda), c0, c1)
+        torch.cuda.synchronize()
+        assert ell.ell_spmv.launches == before + 1
+        assert torch.equal(_bits(y.cpu()), _bits(host.mult_combined(x, c0, c1)))
 
 
 def test_tet_ell_operator_cuda_equals_cpu(cuda):

@@ -193,16 +193,20 @@ def _random_varwidth(n, seed):
 def test_pair_plain_matches_scipy(dtype, rtol):
     A, B = _random_varwidth(900, 3), _random_varwidth(900, 4)
     pair = tell.MultiELLPair.from_csr_pair(A, B, dtype, "cpu")
-    # every row in exactly one bucket, widest bucket first
-    rows = np.sort(pair.row_ids.numpy())
-    assert np.array_equal(rows, np.arange(900))
-    widths = [b[2] for b in pair.buckets]
-    assert widths == sorted(widths, reverse=True) and len(set(widths)) == len(widths)
+    # every row in exactly one slice of 32, each slice as wide as its widest
+    # row, rows sorted by width (descending) within a window of SIGMA rows
+    order = pair.row_ids.numpy()
+    assert np.array_equal(np.sort(order), np.arange(900))
+    nnz = np.diff((abs(A) + abs(B)).tocsr().indptr)[order]
+    widths = np.diff(pair.slice_ptr.numpy()) // tell.SLICE
+    assert np.array_equal(widths, [nnz[s:s + tell.SLICE].max()
+                                   for s in range(0, 900, tell.SLICE)])
+    assert 900 <= tell.SIGMA and np.all(np.diff(nnz) <= 0)
     assert pair.nnz == (abs(A) + abs(B)).nnz
     x = np.random.default_rng(5).standard_normal(900)
     tx = torch.as_tensor(x, dtype=pair.w0.dtype)
     for c0, c1 in ((1.0, 0.0), (0.0, 1.0), (1.0, 0.37), (-2.0, 5.0)):
-        y = tell.ell_spmv(pair, tx, c0, c1).double().numpy()
+        y = pair.mult_combined(tx, c0, c1).double().numpy()
         close(y, c0 * (A @ x) + c1 * (B @ x), rtol)
     close(pair.diag0, A.diagonal(), rtol)
     close(pair.diag1, B.diagonal(), rtol)
@@ -220,6 +224,101 @@ def test_mult_combined_matches_jax_interpret(jax_case):
     close(top._ell.mult1(tx), jop._ell.mult1(jx), 1e-12)
     close(top._ell.diag0, jop._ell.diag0, 1e-12)
     close(top._ell.diag1, jop._ell.diag1, 1e-12)
+
+
+def _old_bucket_slots(nnz):
+    """Slots of the width buckets of 8 the SELL slices replaced."""
+    top = int(nnz.max())
+    edges = np.asarray([e for e in range(8, 129, 8) if e < top] + [top])
+    b = np.searchsorted(edges, nnz, side="left")
+    return sum(int(nnz[b == k].max()) * int((b == k).sum())
+               for k in range(len(edges)) if (b == k).any())
+
+
+def test_sell_slices_hold_every_entry_once():
+    """The tet n=6 pair: every (row, column, weight) of both matrices sits in
+    exactly one live slot (the others hold the sentinel column and zero
+    weights), and the slices pad less than the old width buckets did."""
+    fes = FESpace(make_cardiac_tet_mesh(6, **KW), 2)
+    M, A = (BilinearForm(fes, "cpu").add_domain_integrator(k, c).assemble_matrix()
+            for k, c in (("mass", 3.6e6), ("diffusion", 0.54)))
+    pair = tell.MultiELLPair.from_csr_pair(M, A, "float64", "cpu")
+    n, S = pair.n, tell.SLICE
+    cols, w0, w1 = (t.numpy() for t in (pair.cols, pair.w0, pair.w1))
+    ptr, rows = pair.slice_ptr.numpy(), pair.row_ids.numpy()
+    slot = np.arange(cols.size)
+    s = np.searchsorted(ptr, slot, side="right") - 1
+    r = s * S + (slot - ptr[s]) % S            # sorted row of each slot
+    live = cols < n
+    assert np.all(r[live] < n) and not w0[~live].any() and not w1[~live].any()
+    P = (abs(M) + abs(A)).tocsr()
+    got = sp.csr_matrix((np.ones(live.sum()), (rows[r[live]], cols[live])),
+                        shape=(n, n))
+    assert got.nnz == P.nnz == live.sum() == pair.nnz
+    assert (got != (P != 0)).nnz == 0 and got.max() == 1
+    for W, X in ((w0, M), (w1, A)):
+        Y = sp.csr_matrix((W[live], (rows[r[live]], cols[live])), shape=(n, n))
+        assert abs(Y - X).max() == 0
+    old = _old_bucket_slots(np.diff(P.indptr))
+    print(f"tet n=6: padding {pair.padding:.4f}, old buckets {old / P.nnz - 1:.4f}")
+    assert cols.size < old
+
+
+def _pair_formula(pair, x, c0, c1):
+    """(c0·M0 + c1·M1) x with the weights combined per entry,
+    fl(fl(c0·w0) + fl(c1·w1)), as the JAX kernel does in registers, then
+    the row sums in level order (level 0 initialising)."""
+    c0, c1 = (torch.tensor(c, dtype=x.dtype) for c in (c0, c1))
+    xp = torch.cat([x, x.new_zeros(1)])
+    r = torch.arange(pair.n)
+    base = pair.slice_ptr[r // tell.SLICE] + r % tell.SLICE
+    width = (pair.slice_ptr[r // tell.SLICE + 1]
+             - pair.slice_ptr[r // tell.SLICE]) // tell.SLICE
+    acc = torch.zeros_like(x)
+    for j in range(pair.max_width):
+        q = torch.clamp(base + tell.SLICE * j, max=pair.cols.numel() - 1)
+        p = (c0 * pair.w0[q] + c1 * pair.w1[q]) * xp[pair.cols[q].long()]
+        acc = torch.where(width > j, p if j == 0 else acc + p, acc)
+    y = torch.empty_like(x)
+    y[pair.row_ids.long()] = acc
+    return y
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_combined_plane_bitwise_equals_pair(dtype):
+    """One weight plane c0·w0 + c1·w1 streamed alone gives the per-entry
+    pair product bit for bit (plain version), −0.0 entries of x included,
+    and ``mult_combined`` is that product."""
+    A, B = _random_varwidth(700, 8), _random_varwidth(700, 9)
+    pair = tell.MultiELLPair.from_csr_pair(A, B, dtype, "cpu")
+    x = torch.as_tensor(np.random.default_rng(10).standard_normal(700),
+                        dtype=pair.w0.dtype)
+    x[::13] = -0.0
+    bits = torch.int64 if dtype == "float64" else torch.int32
+    for c0, c1 in ((1.0, 0.10896662), (0.0, 1.0), (1.0, 0.0), (-2.0, 5.0)):
+        plane = pair.combined(c0, c1)
+        y = tell.ell_spmv(plane, x)
+        assert torch.equal(y.view(bits), _pair_formula(pair, x, c0, c1).view(bits))
+        assert torch.equal(plane.mult(x).view(bits), y.view(bits))
+        assert torch.equal(pair.mult_combined(x, c0, c1).view(bits), y.view(bits))
+    with pytest.raises(ValueError):
+        tell.ell_spmv(pair, x)
+
+
+def test_combined_plane_matches_jax_interpret(jax_case):
+    """The stage and residual planes the operator forms against JAX
+    ``MultiELLPair.mult_combined`` (interpret mode) at rtol 1e-12."""
+    jop, _, _ = jax_case
+    top = _port_op()
+    x = np.random.default_rng(11).standard_normal(jop.fes.ndof)
+    gamma = DT * float(tode.SDIRK33.a[0, 0])
+    jx, tx = jnp.asarray(x), torch.as_tensor(x)
+    close(top._stage_apply(gamma)(tx), jop._ell.mult_combined(jx, 1.0, gamma),
+          1e-12)
+    close(top._A_apply(tx), jop._ell.mult1(jx), 1e-12)
+    clone = top.override(_ell=top._ell)
+    assert clone._ell_A is not top._ell_A
+    assert torch.equal(clone._A_apply(tx), top._A_apply(tx))
 
 
 def test_three_ell_steps_match_jax(jax_case):
