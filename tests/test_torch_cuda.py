@@ -289,17 +289,32 @@ def _bits(t):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kind,shape", [
-    ("take_flat", (1_001, 5_003)), ("take_along_rows", (713, 128, 2_333)),
-    ("take_along_rows", (17, 3, 41)), ("take_along_lanes", (2_333, 128, 128)),
-    ("take_along_lanes", (517, 1_024, 128)), ("take_along_lanes", (9, 16_384, 77)),
-    ("take_along_lanes", (41, 3, 5)), ("take_rows", (713, 128, 2_333)),
-    ("take_rows", (37, 5, 101))])
+    ("take_flat", (1_001, 5_003)),
+    # take_along_rows (R, C, B), B >= 2R (strips) but where said: strips of
+    # one sector a row (w = 8 float32, 4 float64), w = 4 float32 (R in
+    # (7,264, 14,528]; float64 w = 2), w = 2 float32 (float64 w = 1), w = 1
+    # float32 (float64 direct), the direct branch for R above 58,112 floats,
+    # a narrow last strip (C = 130), a table narrower than a strip (C = 3),
+    # the direct branch for B < 2R, and a tiny output on strips
+    ("take_along_rows", (713, 128, 2_333)), ("take_along_rows", (10_000, 16, 20_100)),
+    ("take_along_rows", (20_000, 16, 40_100)), ("take_along_rows", (40_000, 16, 80_100)),
+    ("take_along_rows", (60_000, 16, 120_100)), ("take_along_rows", (100, 130, 2_100)),
+    ("take_along_rows", (17, 3, 90_000)), ("take_along_rows", (512, 128, 512)),
+    ("take_along_rows", (17, 3, 41)),
+    # take_along_lanes (B, W, K): dense rows staged (K = W, and K > W/2 with
+    # odd row bytes), sparse rows direct (K = W/8 in items of 4, K = 61 one
+    # at a time), rows wider than the 48 KB staged tile, odd widths
+    ("take_along_lanes", (2_333, 128, 128)), ("take_along_lanes", (300, 130, 100)),
+    ("take_along_lanes", (517, 1_024, 128)), ("take_along_lanes", (300, 512, 61)),
+    ("take_along_lanes", (9, 16_384, 77)), ("take_along_lanes", (41, 3, 5)),
+    ("take_rows", (713, 128, 2_333)), ("take_rows", (37, 5, 101))])
 def test_probe_kernels_bitwise_equal_plain(cuda, dtype, kind, shape):
-    """Each probe gather on the card against its plain version: the probes'
-    row width 128, u2's 1,024, a row wider than the lane gather's 48 KB
-    shared-memory tile (16,384), and odd widths (no 16-byte row copies).
-    Every index lies on the gathered axis (plus one out-of-range row index
-    for take_rows' kernel, which reads it as 0)."""
+    """Each probe gather on the card against its plain version, at a shape
+    for every branch of its kernel (see the list above).  Every index lies
+    on the gathered axis; then a second call with about one index in
+    twenty outside it (−1 or the axis length) must read 0 there and equal
+    the plain version elsewhere (one out-of-range row index for
+    take_rows)."""
     from cardiac_ablation_ecm2_tpu_torch.ops import gather_probes as gp
 
     rng = np.random.default_rng(sum(shape))
@@ -328,6 +343,16 @@ def test_probe_kernels_bitwise_equal_plain(cuda, dtype, kind, shape):
         bad = torch.tensor([0, data.shape[0], -1], dtype=torch.int32, device=cuda)
         out = fn(data, bad)
         assert torch.equal(out[0], data[0]) and not out[1:].any()
+    elif kind in ("take_along_rows", "take_along_lanes"):
+        axis = data.shape[0] if kind == "take_along_rows" else data.shape[1]
+        off = torch.as_tensor(rng.random(idx.shape) < 0.05, device=cuda)
+        bad = torch.where(off, torch.as_tensor(
+            np.where(rng.random(idx.shape) < 0.5, -1, axis), dtype=torch.int32,
+            device=cuda), idx)
+        out = fn(data, bad)
+        ref = plain(data, torch.where(off, 0, bad)).masked_fill(off, 0.0)
+        assert off.any() and not out[off].any()
+        assert torch.equal(_bits(out), _bits(ref))
 
 
 def test_ablation_cuda_equals_cpu(cuda):
