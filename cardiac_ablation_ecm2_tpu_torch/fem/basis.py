@@ -112,6 +112,28 @@ class DofToQuad:
     def dim(self) -> int:
         return DIMENSION[self.geom]
 
+    def full_B(self) -> np.ndarray:
+        """The dense (nq, nd) value matrix (the tensor factors' Kronecker
+        product, lex order)."""
+        if not self.tensor:
+            return self.B
+        return _lex_kron(self.B1, self.dim, deriv_axis=None)
+
+    def full_G(self) -> np.ndarray:
+        """The dense (nq, nd, dim) gradient matrix."""
+        if not self.tensor:
+            return self.G
+        return np.stack([_lex_kron(self.B1, self.dim, deriv_axis=d, G1=self.G1)
+                         for d in range(self.dim)], axis=-1)
+
+
+def _lex_kron(B1: np.ndarray, dim: int, deriv_axis, G1=None) -> np.ndarray:
+    """Kronecker product of 1D factors in lex (i fastest) order: entry
+    [(qx, qy, qz), (i, j, k)] = Fx[qx, i] Fy[qy, j] Fz[qz, k], with G1 in
+    place of B1 along ``deriv_axis``."""
+    fac = [G1 if d == deriv_axis else B1 for d in reversed(range(dim))]
+    return functools.reduce(np.kron, fac)
+
 
 @functools.lru_cache(maxsize=None)
 def make_dof_to_quad(geom: Geometry, p: int, nq1d: int = None) -> DofToQuad:

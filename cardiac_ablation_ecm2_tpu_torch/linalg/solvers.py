@@ -15,7 +15,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..utils.config import config
+from ..utils.config import config, real_t, resolve_device
 
 
 def default_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -67,3 +67,32 @@ def cg(
     info = SolveInfo(iterations=k, final_norm=float(nom.abs().sqrt()),
                      converged=bool(nom <= target))
     return x, info
+
+
+def power_method(
+    A: Callable, n: int = None, iters: int = 30, seed: int = 7, dtype=None,
+    dot: Callable = default_dot, v0: Optional[torch.Tensor] = None,
+    device=None,
+):
+    """Largest-eigenvalue estimate by power iteration (the start of the
+    Chebyshev bounds; OperatorChebyshevSmoother's PowerMethod).  Returns a
+    0-d tensor on the vectors' device, read by no host sync.
+
+    Pass ``v0`` for a deterministic start.  Without it the start is
+    uniform on [0, 1), drawn on the CPU from a ``torch.Generator`` seeded
+    with ``seed`` in ``dtype`` and then moved to ``device`` (``None``: the
+    card), so the CPU and the card start from the same vector.  (The JAX
+    package draws ``jax.random.uniform(PRNGKey(seed))``, which this cannot
+    reproduce: pass that vector as ``v0`` to start where JAX starts.)"""
+    if v0 is not None:
+        v = v0
+    else:
+        gen = torch.Generator().manual_seed(seed)
+        v = torch.rand(n, generator=gen, dtype=real_t(dtype or torch.float32))
+        v = v.to(resolve_device(device))
+    for _ in range(iters):
+        w = A(v)
+        lam = torch.sqrt(dot(w, w))
+        v = w / torch.clamp_min(lam, 1e-300)
+    w = A(v)
+    return dot(v, w) / dot(v, v)

@@ -32,7 +32,7 @@ from ..fem.fespace import FESpace
 from ..fem.quadinterp import eval_values, eval_values_t
 from ..linalg import ode
 from ..ops import diffusion, mass
-from ..utils.config import real_t, resolve_device
+from ..utils.config import elapsed, real_t, resolve_device
 from . import bioheat, rf_laplace
 
 R_GAS = 8.314462618        # J/(mol K)
@@ -114,11 +114,8 @@ class AblationSim:
     def _lap(self, name, t0):
         """Record the seconds since ``t0`` (the card synchronized) under
         ``setup_seconds[name]``; returns the new start."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t1 = time.perf_counter()
-        self.setup_seconds[name] = t1 - t0
-        return t1
+        self.setup_seconds[name] = elapsed(t0, self.device)
+        return t0 + self.setup_seconds[name]
 
     def _Tq(self, T):
         return eval_values(self._db, self._restr.mult(T))

@@ -50,7 +50,7 @@ from ..linalg.solvers import cg, default_dot
 from ..ops import diffusion, lanemajor, mass
 from ..ops.bilinearform import BilinearForm
 from ..ops.ell import MultiELLPair
-from ..utils.config import config, real_t, resolve_device
+from ..utils.config import config, elapsed, real_t, resolve_device
 
 
 def _collapse_uniform(qd: torch.Tensor, dim: int) -> torch.Tensor:
@@ -157,7 +157,7 @@ class BioheatOperator:
             self._diagonals()
             if collapse_uniform_qdata:
                 self._collapse()
-            self.setup_seconds["pa"] = self._elapsed(t0)
+            self.setup_seconds["pa"] = elapsed(t0, self.device)
             if assembled_apply == "ell":
                 self._set_ell(self._build_ell_pair())
             else:
@@ -170,11 +170,6 @@ class BioheatOperator:
             self._load(arrays)
 
     # -- setup -------------------------------------------------------------
-    def _elapsed(self, t0):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter() - t0
-
     def _tensor(self, a):
         return torch.tensor(np.asarray(a), dtype=self.dtype, device=self.device)
 
@@ -254,7 +249,7 @@ class BioheatOperator:
         t1 = time.perf_counter()
         pair = MultiELLPair.from_csr_pair(M, A, self.dtype, dev)
         self.setup_seconds["ell_assembly"] = t1 - t0
-        self.setup_seconds["ell_pair"] = self._elapsed(t1)
+        self.setup_seconds["ell_pair"] = elapsed(t1, self.device)
         return pair
 
     def _set_ell(self, pair):

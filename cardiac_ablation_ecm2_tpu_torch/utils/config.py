@@ -18,6 +18,7 @@ three decimal digits.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import torch
@@ -71,3 +72,11 @@ def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card unless the caller names
     another (``device="cpu"``); ``None`` raises without a GPU."""
     return require_cuda() if device is None else torch.device(device)
+
+
+def elapsed(t0: float, device) -> float:
+    """Seconds since ``t0`` (``time.perf_counter``), after the work queued
+    on ``device`` has finished."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter() - t0

@@ -128,6 +128,42 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the unconstrained operator within 1e-4, T finite with T_max > T_a, Ω
    finite, ≥ 0 and non-decreasing, and launches of the gather-sum, the
    transposing gather, the segment-sum and the fused diffusion kernels.  No MFEM reference exists for the coupled app.
+13. Poisson on the [4] mesh (``models/poisson.solve``): −∇·(0.54∇u) = 1
+   with u = 0 on the electrode (2) and the ground (3), order 2, float32,
+   rel_tol 1e-5, once with each of the JAX package's device
+   preconditioners, ``"jacobi"``, ``"chebyshev"`` (order 4) and ``"lor"``
+   (the LOR multigrid: 7,962,688 sub-hexes, a V-cycle over the order-1
+   space with a 32-iteration coarse CG), each run's launch counts set to
+   0 before it.  Prints each run's setup and solve seconds, CG iterations,
+   peak memory and kernel launches, and for ``"lor"`` the sub-hexes,
+   V-cycles and the setup's split; holds each run converged, within
+   1e-4·max|u| of a float64 Jacobi-PCG solution at rel_tol 1e-10 (whose
+   true relative residual ≤ 1e-6 is held), ``"lor"`` < ``"jacobi"`` / 2
+   and ``"chebyshev"`` ≤ ``"jacobi"`` iterations (the JAX tests'
+   relations), the three solutions within 1e-3·max|u| of each other, and
+   launches of the gather-sum, the transposing gather and the
+   segment-sum.  Each float32 solution's true relative residual
+   ‖B − A_c u‖/‖B‖ (a float64 evaluation) is printed, not held: rounding
+   the float64 solution to float32 alone leaves ~5e-4 at this size.  After
+   the ``"lor"`` solve's launches are read, every kernel and layout of its
+   two restrictions (7,962,688 sub-hexes × 8, and the order-1 space's
+   995,336 × 8) is held bitwise to its plain version in float32 and
+   float64.
+14. ex16 nonlinear heat at full width (``models/heat.py``): the 100³ unit
+   cube, order 2 (8,120,601 dofs), float32, κ = 0.5 + 0.01u, dt 0.01,
+   SDIRK33, u₀ = exp(−20 r²) about the centre; one warm-up and two steps
+   timed with CUDA events.  Prints s/step, the stage CG counts and ‖u‖_L2
+   after each step; holds u finite, every stage solve converged (fewer
+   iterations than max_iter), ‖u‖_L2 non-increasing (the JAX
+   package's ``test_nonlinear_heat_energy_decay``) and launches of the
+   fused diffusion kernel, the gather-sum and the segment-sum; then holds
+   the restriction's kernels bitwise, and the fused diffusion apply on the
+   last state's κ(u) qdata within [8]'s tolerances, to their plain
+   versions at the path's shapes (1,000,000 hexes).
+15. ``entry()`` (``cardiac_ablation_ecm2_tpu_torch/entry.py``, the
+   counterpart of ``__graft_entry__.entry``) on the card and on the CPU
+   in float64 and float32: θ = T − 37 within 1e-10·max|θ| in float64, T
+   within 1e-6·max|T| in float32.
 
 The last two lines of standard output are one JSON object describing the
 kernels and one JSON object with the device.  The ``take_along_rows`` and
@@ -402,40 +438,56 @@ def phase_kernel_random(kc):
                    least=nout * 4 + (nsrc + 18) * 8 + (nout + nsrc + 17) * es)
 
 
+def check_restriction(kc, r, what, tag, seed, timed=False):
+    """Every kernel and layout of the restriction ``r`` (gather-sum and
+    transposing gather L→E, segment-sum E→L from either layout) bitwise
+    against its plain version on seeded random inputs, in float32 and
+    float64; with ``timed``, the float32 calls are timed against their
+    plain versions and library calls."""
+    from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
+
+    J = int((r.offsets[1:] - r.offsets[:-1]).max())
+    gen = torch.Generator(device=kc.dev).manual_seed(seed)
+    g, gT = r.g[0].long(), r.gm.T.reshape(-1).long()
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype)[6:]
+        u = torch.randn(r.ndof, generator=gen, device=kc.dev, dtype=dtype)
+        ue = torch.randn(r.ne * r.nd, generator=gen, device=kc.dev, dtype=dtype)
+        least, old = restriction_bytes(r.ne, r.nd, r.ndof, u.element_size(), J)
+        t = timed and dtype == torch.float32
+        lte = dict(least=least, old=least) if t else {}
+        etl = dict(least=least, old=old) if t else {}
+        kc.compare("gather_sum", f"{what}L->E (ne,nd) {dt}", bg.gather_sum,
+                   bg.gather_sum_plain, (u, r.g), tag=tag,
+                   library=lambda: u.index_select(0, g), **lte)
+        kc.compare("gather_transpose", f"{what}L->E (nd,ne) {dt}",
+                   bg.gather_transpose, bg.gather_transpose_plain, (u, r.gm),
+                   tag=tag, library=lambda: u.index_select(0, gT), **lte)
+        kc.compare("segment_sum", f"{what}E->L (ne,nd) {dt}", bg.segment_sum,
+                   bg.segment_sum_plain, (ue, r.slots, r.offsets), tag=tag,
+                   library=lambda: torch.zeros_like(u).index_add_(0, g, ue), **etl)
+        kc.compare("segment_sum", f"{what}E->L (nd,ne) {dt}", bg.segment_sum,
+                   bg.segment_sum_plain, (ue, r.slotsT, r.offsets), tag=tag,
+                   library=lambda: torch.zeros_like(u).index_add_(0, gT, ue), **etl)
+        del u, ue
+    del g, gT
+    torch.cuda.empty_cache()
+
+
 def phase_kernel_restriction(kc, fes):
     """The restriction of the 995,336-hex mesh in all four layouts, float32
     (timed) and float64; the hex CG apply's round trip."""
     from cardiac_ablation_ecm2_tpu_torch.fem.restriction import ElementRestriction
-    from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
 
     t0 = time.perf_counter()
     r = ElementRestriction(fes.gather_map, fes.ndof, kc.dev)
     torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
     J = int((r.offsets[1:] - r.offsets[:-1]).max())
     print(f"[2] restriction map and slot lists for {fes.ndof} dofs built in "
-          f"{time.perf_counter() - t0:.2f} s; multiplicity up to {J}")
-    gen = torch.Generator(device=kc.dev).manual_seed(1)
-    g, gT = r.g[0].long(), r.gm.T.reshape(-1).long()
-    for dtype in (torch.float32, torch.float64):
-        timed = dtype == torch.float32
-        dt = str(dtype)[6:]
-        u = torch.randn(fes.ndof, generator=gen, device=kc.dev, dtype=dtype)
-        ue = torch.randn(r.ne * r.nd, generator=gen, device=kc.dev, dtype=dtype)
-        least, old = restriction_bytes(r.ne, r.nd, r.ndof, u.element_size(), J)
-        lte = dict(least=least, old=least) if timed else {}
-        etl = dict(least=least, old=old) if timed else {}
-        kc.compare("gather_sum", f"L->E (ne,nd) {dt}", bg.gather_sum,
-                   bg.gather_sum_plain, (u, r.g),
-                   library=lambda: u.index_select(0, g), **lte)
-        kc.compare("gather_transpose", f"L->E (nd,ne) {dt}", bg.gather_transpose,
-                   bg.gather_transpose_plain, (u, r.gm),
-                   library=lambda: u.index_select(0, gT), **lte)
-        kc.compare("segment_sum", f"E->L (ne,nd) {dt}", bg.segment_sum,
-                   bg.segment_sum_plain, (ue, r.slots, r.offsets),
-                   library=lambda: torch.zeros_like(u).index_add_(0, g, ue), **etl)
-        kc.compare("segment_sum", f"E->L (nd,ne) {dt}", bg.segment_sum,
-                   bg.segment_sum_plain, (ue, r.slotsT, r.offsets),
-                   library=lambda: torch.zeros_like(u).index_add_(0, gT, ue), **etl)
+          f"{build_s:.2f} s; multiplicity up to {J}")
+    check_restriction(kc, r, "", "[2]", seed=1, timed=True)
+    gen = torch.Generator(device=kc.dev).manual_seed(2)
     trip = [kc.times[k] for k in ("L->E (nd,ne) float32", "E->L (nd,ne) float32")]
     u = torch.randn(fes.ndof, generator=gen, device=kc.dev)
     kc.round_trip = {f"round_trip_{f}": sum(t[f] for t in trip)
@@ -922,22 +974,22 @@ def phase_diffusion_kernel(dev):
                     timed=True)
 
 
-def check_operator_diffusion(tag, label, op, timed=False):
+def check_operator_diffusion(tag, label, op, qd=None, timed=False):
     """The fused kernel against its plain version on a main path's own
-    basis and diffusion qdata (the residual's shapes) with a random
-    E-vector, in float32 and float64; run after that path's launch counts
-    were read.  Returns the max abs error and, with ``timed``, the float32
-    numbers of the kernels line."""
+    basis and diffusion qdata (``qd``, by default the operator's ``K_qd``:
+    the residual's shapes) with a random E-vector, in float32 and float64;
+    run after that path's launch counts were read.  Returns the max abs
+    error and, with ``timed``, the float32 numbers of the kernels line."""
     from cardiac_ablation_ecm2_tpu_torch.fem.build import basis_for
 
+    qd = op.K_qd if qd is None else qd
     gen = torch.Generator(device=op.device).manual_seed(8)
     e = torch.randn(op.fes.mesh.ne, op.db.n1d ** 3, generator=gen,
                     device=op.device)
-    err32, numbers = check_diffusion(label, op.db, op.K_qd, e, timed=timed,
+    err32, numbers = check_diffusion(label, op.db, qd, e, timed=timed,
                                      tag=tag)
     db64 = basis_for(op.fes, torch.float64, op.device)
-    err64, _ = check_diffusion(label, db64, op.K_qd.double(), e.double(),
-                               tag=tag)
+    err64, _ = check_diffusion(label, db64, qd.double(), e.double(), tag=tag)
     return max(err32, err64), numbers
 
 
@@ -1332,6 +1384,238 @@ def phase_ablation_main(dev, mesh, mesh_s):
     return launches
 
 
+# the Poisson problem of [13]: the RF solve's conductivity and boundaries
+# (electrode 2, ground 3) with a unit source
+POISSON = dict(order=2, rhs=1.0, kappa=0.54, ess_bdr=[2, 3], rel_tol=1e-5,
+               max_iter=5000)
+POISSON_PRECONDITIONERS = ("jacobi", "chebyshev", "lor")
+# ex16's parameters ([14]; examples/ex16_heat.py and the operator's defaults)
+EX16 = dict(kappa=0.5, alpha=0.01, rel_tol=1e-10, max_iter=500)
+EX16_DT = 0.01
+
+
+def poisson_residual(fes, dev):
+    """``u ↦ ‖B − A_c u‖/‖B‖``, the true relative residual of [13]'s
+    constrained system, assembled and applied in float64 (a float32
+    evaluation adds rounding of its own), rebuilt from the space's cached
+    factors."""
+    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
+    from cardiac_ablation_ecm2_tpu_torch.ops.linearform import domain_lf
+    from cardiac_ablation_ecm2_tpu_torch.ops.operators import form_linear_system
+
+    A = BilinearForm(fes, dev).add_domain_integrator(
+        "diffusion", POISSON["kappa"]).assemble("float64").operator()
+    b = domain_lf(fes, POISSON["rhs"], dtype="float64", device=dev)
+    Ac, B = form_linear_system(A, fes.essential_dofs(POISSON["ess_bdr"]),
+                               torch.zeros_like(b), b)
+    return lambda u: float((B - Ac.mult(u.double())).norm() / B.norm())
+
+
+def phase_poisson(kc, dev, mesh):
+    """[13] Poisson on the [4] mesh in float32 with each of the JAX
+    package's device preconditioners; after the ``"lor"`` solve's launches
+    are read, the kernels of its two restrictions (the LOR sub-hexes', the
+    order-1 space's) are held to their plain versions.  Returns the launch
+    counts of the three solves together."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import restriction_for
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.models import poisson
+
+    t0 = time.perf_counter()
+    fes = FESpace(mesh, 2)
+    space_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restriction_for(fes, dev)
+    torch.cuda.synchronize()
+    restr_s = time.perf_counter() - t0
+    print(f"[13] Poisson -div(0.54 grad u) = 1, u = 0 on attributes 2, 3, the [4] "
+          f"cardiac hex mesh, order 2 f32: {mesh.ne} hexes, {fes.ndof} dofs; host "
+          f"FESpace {space_s:.2f} s, restriction (shared by the three solves) "
+          f"{restr_s:.2f} s")
+    total = dict.fromkeys(RESTRICTION_KERNELS + ("fused_diffusion",), 0)
+    runs = {}
+    for pre in POISSON_PRECONDITIONERS:
+        start_main_path()
+        r = poisson.solve(mesh, preconditioner=pre, dtype="float32", device=dev,
+                          fes=fes, **POISSON)
+        launches = main_path_launches()
+        peak = torch.cuda.max_memory_allocated()
+        for k in total:
+            total[k] += launches[k]
+        sec = r.setup_seconds
+        print(f"[13] {pre}: setup operator {sec['operator']:.3f} s + "
+              f"preconditioner {sec['preconditioner']:.3f} s, solve "
+              f"{r.solve_seconds:.3f} s ({r.solve_seconds / max(r.iterations, 1) * 1e3:.3f}"
+              f" ms an iteration), {r.iterations} CG iterations, converged "
+              f"{r.converged}, max_memory_allocated {peak / 2**30:.3f} GiB; "
+              f"launches " + ", ".join(f"{k} {launches[k]}" for k in total))
+        mg = r.multigrid
+        if mg is not None:
+            nsub = mg.levels[1].A.__self__.A_e.shape[0]
+            print(f"[13] lor: nsub {nsub}, {mg.cycles} V-cycles ("
+                  f"{r.solve_seconds / mg.cycles * 1e3:.3f} ms each with its CG "
+                  f"iteration, {mg.coarse_iters} coarse CG iterations at most); "
+                  f"setup split "
+                  + ", ".join(f"{k} {v:.3f} s" for k, v in mg.setup_seconds.items()))
+            check(nsub == mesh.ne * 8, "[13] one LOR sub-hex per lattice cell")
+            check(mg.cycles == r.iterations + 1, "[13] one V-cycle per PCG step")
+            fine = mg.levels[1]
+            check_restriction(kc, fine.A.__self__.restr, "LOR sub-hex ", "[13]",
+                              seed=13)
+            check_restriction(kc, fine.prolongate.__self__.Rc, "order-1 ",
+                              "[13]", seed=14)
+        check(r.converged, f"[13] {pre} converged")
+        check(r.u.shape == (fes.ndof,) and bool(torch.isfinite(r.u).all()),
+              f"[13] {pre}: finite u of the expected shape")
+        runs[pre] = (r.iterations, r.u)
+        del r, mg
+    # the float64 reference: Jacobi-PCG at rel_tol 1e-10 (not Chebyshev,
+    # whose float64 run stops early at this size: models/poisson.solve)
+    start_main_path()
+    ref = poisson.solve(mesh, preconditioner="jacobi", dtype="float64",
+                        device=dev, fes=fes, **dict(POISSON, rel_tol=1e-10,
+                                                    max_iter=10000))
+    u_ref = ref.u
+    check(ref.converged, "[13] the float64 reference converged")
+    residual = poisson_residual(fes, dev)
+    res = {k: residual(v[1]) for k, v in runs.items()}
+    res_ref, floor = residual(u_ref), residual(u_ref.float())
+    print(f"[13] float64 reference (jacobi, rel_tol 1e-10): {ref.iterations} CG "
+          f"iterations, solve {ref.solve_seconds:.3f} s, true relative residual "
+          f"{res_ref:.3e}; rounding it to float32 alone leaves {floor:.3e}")
+    del ref
+    its = {k: v[0] for k, v in runs.items()}
+    scale = float(u_ref.abs().max())
+    errs = {k: float((v[1].double() - u_ref).abs().max()) / scale
+            for k, v in runs.items()}
+    diffs = {k: float((v[1] - runs["jacobi"][1]).abs().max()) / scale
+             for k, v in runs.items()}
+    print(f"[13] iterations {its}; true relative residual (float64 evaluation) "
+          + ", ".join(f"{k} {v:.3e}" for k, v in res.items())
+          + f"; max|u - u_ref|/max|u_ref| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; max|u - u_jacobi|/max|u| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in diffs.items())
+          + f"; max|u| {scale:.6e}; launches of the three float32 solves "
+          + ", ".join(f"{k} {v}" for k, v in total.items()))
+    check(res_ref <= 1e-6, "[13] the float64 reference's true residual <= 1e-6")
+    check(max(errs.values()) <= 1e-4,
+          "[13] each float32 solution within 1e-4 max|u| of the float64 one")
+    check(its["lor"] < its["jacobi"] / 2, "[13] lor iterations < jacobi / 2")
+    check(its["chebyshev"] <= its["jacobi"], "[13] chebyshev iterations <= jacobi")
+    check(max(diffs.values()) <= 1e-3, "[13] the three solutions within 1e-3 max|u|")
+    for name in RESTRICTION_KERNELS:
+        check(total[name] > 0, f"[13] the Poisson solves launched {name}")
+    return total
+
+
+def phase_heat(kc, dev, n=100):
+    """[14] ex16 nonlinear heat at full width: the n³ = 100³ unit cube,
+    order 2, float32, SDIRK33; after its launches are read, the
+    restriction's kernels and the fused diffusion apply on the last
+    state's κ(u) qdata are held to their plain versions.  Returns the
+    launch counts of its run."""
+    from cardiac_ablation_ecm2_tpu_torch.fem import gridfunction as gf
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg import ode
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2_tpu_torch.models import heat
+    from cardiac_ablation_ecm2_tpu_torch.ops import diffusion
+
+    t0 = time.perf_counter()
+    mesh = make_cartesian_3d(n, n, n)
+    t1 = time.perf_counter()
+    fes = FESpace(mesh, 2)
+    t2 = time.perf_counter()
+    check((mesh.ne, fes.ndof) == (n ** 3, (2 * n + 1) ** 3), "[14] mesh size")
+    start_main_path()
+    t3 = time.perf_counter()
+    op = heat.ConductionOperator(fes, dtype="float32", device=dev, **EX16)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t3
+
+    def u0(x):
+        return torch.exp(-20.0 * ((x - 0.5) ** 2).sum(-1))
+
+    u = gf.project(fes, u0, "float32", dev)
+    norms = [float(gf.l2_norm(fes, u.double(), dtype="float64"))]
+    step = heat.make_stepper(op, ode.select("sdirk33"))
+    u, t = step(u, 0.0, EX16_DT)                          # warm-up step
+    norms.append(float(gf.l2_norm(fes, u.double(), dtype="float64")))
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    ms = []
+    for _ in range(2):
+        a.record()
+        u, t = step(u, t, EX16_DT)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        norms.append(float(gf.l2_norm(fes, u.double(), dtype="float64")))
+    launches = main_path_launches()
+    peak = torch.cuda.max_memory_allocated()
+    s_step = sum(ms) / 2 / 1e3
+    print(f"[14] ex16 heat, {n}^3 unit cube order 2 f32: {mesh.ne} hexes, "
+          f"{fes.ndof} dofs; kappa 0.5 + 0.01 u, dt {EX16_DT}, SDIRK33, rel_tol "
+          f"{EX16['rel_tol']}")
+    print(f"[14] host setup: mesh {t1 - t0:.2f} s, FESpace {t2 - t1:.2f} s; "
+          f"operator {setup_s:.2f} s")
+    print(f"[14] s/step {s_step:.6f} (CUDA events, 2 steps after 1 warm-up: "
+          + ", ".join(f"{m / 1e3:.6f}" for m in ms) + f"); stage CG "
+          f"{op.cg_iterations}; ||u||_L2 after each step "
+          + ", ".join(f"{v:.9e}" for v in norms)
+          + f"; max_memory_allocated {peak / 2**30:.3f} GiB; launches "
+          + ", ".join(f"{k} {launches[k]}" for k in
+                      RESTRICTION_KERNELS + ("fused_diffusion",)))
+    check(u.shape == (fes.ndof,) and bool(torch.isfinite(u).all()),
+          "[14] finite u of the expected shape")
+    check(max(op.cg_iterations) < EX16["max_iter"],
+          "[14] every stage solve converged before max_iter")
+    check(all(b <= a for a, b in zip(norms, norms[1:])),
+          "[14] ||u||_L2 non-increasing")
+    for name in ("fused_diffusion", "gather_sum", "segment_sum"):
+        check(launches[name] > 0, f"[14] the heat path launched {name}")
+    # the path's kernels against their plain versions at its own shapes:
+    # the restriction, and the diffusion apply on κ(u)'s qdata
+    check_restriction(kc, op.restr, f"ex16 {n}^3 ", "[14]", seed=15)
+    qd = diffusion.setup_packed(op.gf, op._kappa_q(u))
+    check_operator_diffusion("[14]", f"ex16 {n}^3 kappa(u) qdata", op, qd=qd)
+    return launches
+
+
+def phase_entry(dev):
+    """[15] The torch ``entry()`` on the card and on the CPU, float64 and
+    float32 (the configured dtype): θ = T − 37 within 1e-10·max|θ| in
+    float64, T within 1e-6·max|T| (ten float32 ulps at 37) in float32."""
+    from cardiac_ablation_ecm2_tpu_torch.entry import entry
+    from cardiac_ablation_ecm2_tpu_torch.utils.config import config, configure
+
+    old = config.dtype
+    try:
+        for dtype, tol in (("float64", 1e-10), ("float32", 1e-6)):
+            configure(dtype=dtype)
+            outs = []
+            for d in (dev, "cpu"):
+                fn, args = entry(device=d)
+                T, t = fn(*args)
+                check(T.shape == args[0].shape and bool(torch.isfinite(T).all())
+                      and float(T.max()) > 37.0 and float(t) == 0.5,
+                      f"[15] entry {dtype} on {d}: finite T above 37 C, t = 0.5")
+                outs.append(T.cpu())
+            diff = float((outs[0] - outs[1]).abs().max())
+            if dtype == "float64":
+                rel = diff / float((outs[1] - 37.0).abs().max())
+            else:
+                rel = diff / float(outs[1].abs().max())
+            print(f"[15] entry() {dtype}, {outs[0].numel()} dofs: T_max "
+                  f"{float(outs[0].max()):.8f} (card), max |card - CPU| "
+                  f"{diff:.3e}, relative {rel:.3e} (of max|T - 37| in float64, "
+                  f"of max|T| in float32)")
+            check(rel <= tol, f"[15] entry {dtype}: card within {tol} of the CPU")
+    finally:
+        configure(dtype=old)
+
+
 def main():
     from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
     from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
@@ -1376,6 +1660,10 @@ def main():
     probe_numbers = phase_probes(dev)
     phase_ablation_small(dev)
     phase_ablation_main(dev, hex_mesh, mesh_s)
+    phase_poisson(kc, dev, hex_mesh)
+    del hex_mesh
+    phase_heat(kc, dev)
+    phase_entry(dev)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # the restriction's kernels at their hex main-path shapes, float32: the

@@ -4,8 +4,10 @@ and the probe gathers bitwise equal to their plain PyTorch versions,
 FULL assembly repeatable bit for bit, the fused diffusion apply within
 rounding of its plain version at every shape it takes (and raising on one
 it does not), and the restriction,
-the tet ELL operator, the masked cardiac-hex lattice and the coupled
-ablation app on CUDA equal to the CPU.
+the tet ELL operator, the masked cardiac-hex lattice, the coupled
+ablation app, Poisson with each preconditioner, ex16 heat and ``entry()``
+on CUDA equal to the CPU, and the LOR operator at the [4] mesh's size
+equal to a plain composition.
 Needs an NVIDIA GPU and nvcc; skips without a GPU.  This file imports no
 JAX, so it also runs where JAX is not installed:
 
@@ -386,3 +388,110 @@ def test_ablation_cuda_equals_cpu(cuda):
     for a, b in pairs:
         rel = float((a.cpu() - b).abs().max() / b.abs().max())
         assert rel <= 1e-10, rel
+
+
+@pytest.fixture
+def quad_extra_0():
+    old = config.quad_extra
+    configure(quad_extra=0)
+    yield
+    configure(quad_extra=old)
+
+
+def _rel(a, b):
+    return float((a.cpu() - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("pre", ["jacobi", "chebyshev", "lor", None])
+def test_poisson_cuda_equals_cpu(cuda, quad_extra_0, pre):
+    """Poisson on the cardiac hex n=16 in float64 (κ 0.54, u = 0 on the
+    electrode and the ground, rel_tol 1e-10): u on the card within 1e-10 of
+    the CPU and equal CG counts; the power method's start is drawn on the
+    CPU, so the Chebyshev bounds start alike."""
+    from cardiac_ablation_ecm2_tpu_torch.models import poisson
+
+    L = 0.04
+    mesh = make_cardiac_hex_mesh(16, lengths=(L, L, L / 2), electrode_radius=0.004)
+    kw = dict(order=2, rhs=1.0, kappa=0.54, ess_bdr=[2, 3], rel_tol=1e-10,
+              max_iter=3000, preconditioner=pre, dtype="float64")
+    before = bg.gather_transpose.launches, bg.segment_sum.launches
+    rg = poisson.solve(mesh, device=cuda, **kw)
+    assert bg.gather_transpose.launches > before[0]
+    assert bg.segment_sum.launches > before[1]
+    rc = poisson.solve(mesh, device="cpu", **kw)
+    assert rg.converged and rc.converged
+    assert rg.iterations == rc.iterations
+    assert _rel(rg.u, rc.u) <= 1e-10
+
+
+def test_heat_cuda_equals_cpu(cuda, quad_extra_0):
+    """ex16 on the cardiac hex n=6 in float64 (faces 2 and 3 held): three
+    SDIRK33 steps on the card within 1e-10 of the CPU, equal stage CG
+    counts, the fused diffusion kernel launched."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.gridfunction import project
+    from cardiac_ablation_ecm2_tpu_torch.models import heat
+
+    L = 0.04
+    fes = FESpace(make_cardiac_hex_mesh(6, lengths=(L, L, L / 2),
+                                        electrode_radius=0.004), 2)
+    before = fd.diffusion_apply.launches
+    out, ops = [], []
+    for d in (cuda, "cpu"):
+        op = heat.ConductionOperator(fes, ess_bdr=(2, 3), dtype="float64", device=d)
+        u = project(fes, lambda x: torch.exp(-20.0 * (((x - L / 2) / L) ** 2).sum(-1)),
+                    "float64", d)
+        step = heat.make_stepper(op, ode.select("sdirk33"))
+        t = 0.0
+        for _ in range(3):
+            u, t = step(u, t, 0.01)
+        out.append(u)
+        ops.append(op)
+    assert fd.diffusion_apply.launches > before
+    assert ops[0].cg_iterations == ops[1].cg_iterations
+    assert _rel(out[0], out[1]) <= 1e-10
+
+
+def test_entry_cuda_equals_cpu(cuda):
+    """``entry()`` in the configured float64: θ = T − 37 on the card within
+    1e-10 of the CPU."""
+    from cardiac_ablation_ecm2_tpu_torch.entry import entry
+
+    out = []
+    for d in (cuda, "cpu"):
+        fn, args = entry(device=d)
+        assert args[0].device.type == torch.device(d).type
+        T, t = fn(*args)
+        assert float(t) == 0.5
+        out.append(T - 37.0)
+    assert out[0].dtype == torch.float64
+    assert _rel(out[0], out[1]) <= 1e-10
+
+
+def test_lor_operator_matches_plain_composition(cuda, quad_extra_0):
+    """``DeviceLOROperator.mult`` on the [4] mesh (cardiac hex n=126, order
+    2, 7,962,688 sub-hexes) in float64, electrode and ground constrained:
+    within 1e-12·max|y| of a plain ``index_select`` / batched matvec /
+    ``index_add_`` composition on the same element matrices, so the LOR
+    restriction (the gather and segment-sum kernels) is held to a plain
+    version at its full size."""
+    from cardiac_ablation_ecm2_tpu_torch.ops.lor_device import DeviceLOROperator
+
+    L = 0.04
+    fes = FESpace(make_cardiac_hex_mesh(126, lengths=(L, L, L / 2),
+                                        electrode_radius=0.004), 2)
+    ess = fes.essential_dofs([2, 3])
+    op = DeviceLOROperator(fes, 0.54, ess=ess, dtype="float64", device=cuda)
+    assert op.A_e.shape == (7_962_688, 8, 8)
+    x = torch.randn(fes.ndof, dtype=torch.float64, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(8))
+    before = bg.gather_sum.launches, bg.segment_sum.launches
+    y = op.mult(x)
+    assert (bg.gather_sum.launches, bg.segment_sum.launches) == (
+        before[0] + 1, before[1] + 1)
+    conn = op.restr.g[0].long()
+    keep = 1.0 - op.ess_mask
+    e = (x * keep).index_select(0, conn).view(-1, 8)
+    ye = torch.einsum("snm,sm->sn", op.A_e, e)
+    ref = torch.zeros_like(x).index_add_(0, conn, ye.reshape(-1))
+    ref = ref * keep + x * op.ess_mask
+    assert float((y - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
