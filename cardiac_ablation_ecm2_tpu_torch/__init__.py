@@ -6,7 +6,8 @@ This package imports ``torch`` and never ``jax``.  Plain tensor code is
 PyTorch; every TPU kernel of the JAX package has a hand-written CUDA C++
 counterpart for Hopper (``sm_90a``) in ``csrc/`` (the L↔E restriction's
 gather-sum, transposing gather and segment-sum, the SELL SpMV, the fused
-diffusion apply and the probe gathers), built on first use.
+diffusion apply, also with bfloat16 qdata, and the probe gathers), built
+on first use.
 
 Every function that allocates on a device takes an explicit ``device``;
 there is no global device.

@@ -7,7 +7,10 @@
 // (6, ne, nq) with nq = nq1^3 lex points (x fastest), packed as
 // [D00, D11, D22, D01, D02, D12]; B1 and G1 are the (nq1, n1) 1D value and
 // derivative matrices.  A qdata element stride of 0 broadcasts one
-// element's qdata to all (collapsed uniform qdata).
+// element's qdata to all (collapsed uniform qdata).  The qdata may also be
+// stored in bfloat16 beside float32 e and y (the bioheat operator's
+// qdata_bf16): each value is converted to float as it is loaded, so the
+// qdata stream is halved and the arithmetic stays float32.
 //
 // Replaces the TPU kernel ops/pallas_kernels.py::diffusion_apply_pallas /
 // _kernel_3d of the JAX package (cardiac_ablation_ecm2_tpu).  The TPU
@@ -35,11 +38,15 @@
 // traffic (two reads per multiply-add) is the next limit.  Tensor cores,
 // TMA and a deeper pipeline are later work.
 //
+// With bfloat16 qdata the bytes are ne x (2 nd x 4 + 6 nq x 2): 0.54 GB
+// at that size, 0.16 ms.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC fused_diffusion.cu -o libfused_diffusion.so
 // Each entry point returns cudaGetLastError() after the launch.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -58,9 +65,16 @@ struct Tile {
     static constexpr int E = raw < 1 ? 1 : (raw > 64 ? 64 : raw);
 };
 
-template <typename T, int N1, int Q1>
+// One qdata value in the arithmetic type: as stored, or bfloat16 widened.
+template <typename T>
+__device__ __forceinline__ T load_q(const T* p) { return *p; }
+__device__ __forceinline__ float load_q(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+}
+
+template <typename T, typename TQ, int N1, int Q1>
 __global__ void __launch_bounds__(kThreads)
-diffusion_kernel(const T* __restrict__ e, const T* __restrict__ qd,
+diffusion_kernel(const T* __restrict__ e, const TQ* __restrict__ qd,
                  int64_t q_plane, int64_t q_elem, const T* __restrict__ B1,
                  const T* __restrict__ G1, int64_t ne, T* __restrict__ out) {
     using Tl = Tile<T, N1, Q1>;
@@ -141,9 +155,10 @@ diffusion_kernel(const T* __restrict__ e, const T* __restrict__ qd,
             gy += bc * cbg[k * Q1 * Q1];
             gz += sG[c * N1 + k] * cbb[k * Q1 * Q1];
         }
-        const T* q = qd + (e0 + el) * q_elem + r;
-        const T d00 = q[0], d11 = q[q_plane], d22 = q[2 * q_plane];
-        const T d01 = q[3 * q_plane], d02 = q[4 * q_plane], d12 = q[5 * q_plane];
+        const TQ* q = qd + (e0 + el) * q_elem + r;
+        const T d00 = load_q(q), d11 = load_q(q + q_plane);
+        const T d22 = load_q(q + 2 * q_plane), d01 = load_q(q + 3 * q_plane);
+        const T d02 = load_q(q + 4 * q_plane), d12 = load_q(q + 5 * q_plane);
         x0[el * NQ + r] = d00 * gx + d01 * gy + d02 * gz;
         x1[el * NQ + r] = d01 * gx + d11 * gy + d12 * gz;
         x2[el * NQ + r] = d02 * gx + d12 * gy + d22 * gz;
@@ -205,22 +220,22 @@ diffusion_kernel(const T* __restrict__ e, const T* __restrict__ qd,
     }
 }
 
-template <typename T, int N1, int Q1>
+template <typename T, typename TQ, int N1, int Q1>
 int launch_one(const void* e, const void* qd, int64_t q_plane, int64_t q_elem,
                const void* B1, const void* G1, int64_t ne, void* out,
                cudaStream_t st) {
     constexpr int E = Tile<T, N1, Q1>::E;
     const int64_t blocks = (ne + E - 1) / E;
     if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-    diffusion_kernel<T, N1, Q1><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        static_cast<const T*>(e), static_cast<const T*>(qd), q_plane, q_elem,
+    diffusion_kernel<T, TQ, N1, Q1><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+        static_cast<const T*>(e), static_cast<const TQ*>(qd), q_plane, q_elem,
         static_cast<const T*>(B1), static_cast<const T*>(G1), ne,
         static_cast<T*>(out));
     return static_cast<int>(cudaGetLastError());
 }
 
 // n1 in 2..5 and nq1 in {n1, n1 + 1}: orders 1-4 at quad_extra 0 and 1.
-template <typename T>
+template <typename T, typename TQ>
 int launch(const void* e, const void* qd, int64_t q_plane, int64_t q_elem,
            const void* B1, const void* G1, int n1, int nq1, int64_t ne,
            void* out, void* stream) {
@@ -228,7 +243,7 @@ int launch(const void* e, const void* qd, int64_t q_plane, int64_t q_elem,
     if (ne <= 0) return 0;
 #define FD_CASE(N, Q)                                                        \
     if (n1 == N && nq1 == Q)                                                 \
-        return launch_one<T, N, Q>(e, qd, q_plane, q_elem, B1, G1, ne, out, st);
+        return launch_one<T, TQ, N, Q>(e, qd, q_plane, q_elem, B1, G1, ne, out, st);
     FD_CASE(2, 2) FD_CASE(2, 3) FD_CASE(3, 3) FD_CASE(3, 4)
     FD_CASE(4, 4) FD_CASE(4, 5) FD_CASE(5, 5) FD_CASE(5, 6)
 #undef FD_CASE
@@ -242,13 +257,23 @@ extern "C" {
 int fused_diffusion_f32(const void* e, const void* qd, int64_t q_plane,
                         int64_t q_elem, const void* B1, const void* G1, int n1,
                         int nq1, int64_t ne, void* out, void* stream) {
-    return launch<float>(e, qd, q_plane, q_elem, B1, G1, n1, nq1, ne, out, stream);
+    return launch<float, float>(e, qd, q_plane, q_elem, B1, G1, n1, nq1, ne, out,
+                                stream);
+}
+
+int fused_diffusion_f32_bf16q(const void* e, const void* qd, int64_t q_plane,
+                              int64_t q_elem, const void* B1, const void* G1,
+                              int n1, int nq1, int64_t ne, void* out,
+                              void* stream) {
+    return launch<float, __nv_bfloat16>(e, qd, q_plane, q_elem, B1, G1, n1, nq1,
+                                        ne, out, stream);
 }
 
 int fused_diffusion_f64(const void* e, const void* qd, int64_t q_plane,
                         int64_t q_elem, const void* B1, const void* G1, int n1,
                         int nq1, int64_t ne, void* out, void* stream) {
-    return launch<double>(e, qd, q_plane, q_elem, B1, G1, n1, nq1, ne, out, stream);
+    return launch<double, double>(e, qd, q_plane, q_elem, B1, G1, n1, nq1, ne, out,
+                                  stream);
 }
 
 const char* fused_diffusion_error_string(int code) {

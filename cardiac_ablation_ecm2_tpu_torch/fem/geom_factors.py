@@ -4,7 +4,10 @@
 The geometry E-vector (element node coordinates) goes through
 ``quadinterp.eval_grad``; determinant and adjugate are closed-form 3×3
 formulas.  Jacobian convention: ``J[e, q, s, d] = ∂x_s/∂ξ_d``.  The same
-code serves tensor (hex) and dense (tet) bases.
+code serves tensor (hex) and dense (tet) bases.  Straight-sided simplices
+also get their constant per-element Jacobians and affine factors on the
+host in float64 (:func:`affine_element_jacobians`,
+:func:`affine_packed_factors`).
 """
 
 from __future__ import annotations
@@ -61,13 +64,74 @@ def adjugate(J: torch.Tensor) -> torch.Tensor:
 
 
 def affine_element_jacobians(mesh) -> Optional[np.ndarray]:
-    """Constant per-element Jacobians for meshes that are affine by
-    construction.  In the JAX package only straight-sided simplices are,
-    and the port runs simplices only through the assembled-ELL apply,
-    which needs no affine factors; so this returns None and, on hexes, the
-    numerical separability check (``ops/lanemajor.separable_collapse``)
-    decides, as it does in the JAX package."""
-    return None
+    """Constant per-element Jacobians (ne, dim, dim), float64 host numpy,
+    for meshes whose geometry map is affine by construction: straight-sided
+    simplices with no curved ``nodes`` field.  None for tensor (hex) meshes,
+    curved meshes and embedded (surface) meshes.
+
+    The affine apply (``ops/lanemajor.py``) wants per-element factors
+    adj(J)·adj(J)ᵀ/detJ.  Detecting that the qdata separate from float32
+    qdata fails on sliver tets (the adjugate's rounding reaches ~1e-3 of
+    the factor), so on meshes that are affine by construction the factors
+    are computed here in float64 from the vertices, as the JAX package
+    does."""
+    from .basis import simplex_basis_matrices
+    from .geometry import Geometry
+
+    if getattr(mesh, "nodes", None) is not None:
+        return None
+    if mesh.geom not in (Geometry.TRIANGLE, Geometry.TETRAHEDRON):
+        return None
+    dim = 2 if mesh.geom == Geometry.TRIANGLE else 3
+    if mesh.vertices.shape[1] != dim:      # embedded/surface mesh
+        return None
+    # the P1 geometry gradient at one point (it is constant); the convention
+    # of compute_geometric_factors: J[e, s, d] = Σ_n G[n, d] X[e, n, s]
+    ref = np.full((1, dim), 1.0 / (dim + 1))
+    _B, G = simplex_basis_matrices(mesh.geom, 1, ref)
+    G = np.asarray(G, np.float64).reshape(-1, dim + 1, dim)[0]   # (nv, dim)
+    X = np.asarray(mesh.vertices, np.float64)[mesh.elements]     # (ne, nv, s)
+    return np.einsum("nd,ens->esd", G, X)
+
+
+def _np_det_adj(J: np.ndarray):
+    """Float64 host det and adjugate of (ne, d, d), d in {2, 3}."""
+    d = J.shape[-1]
+    if d == 2:
+        det = J[:, 0, 0] * J[:, 1, 1] - J[:, 0, 1] * J[:, 1, 0]
+        adj = np.empty_like(J)
+        adj[:, 0, 0], adj[:, 0, 1] = J[:, 1, 1], -J[:, 0, 1]
+        adj[:, 1, 0], adj[:, 1, 1] = -J[:, 1, 0], J[:, 0, 0]
+        return det, adj
+    c = np.empty_like(J)
+    for i in range(3):
+        i1, i2 = (i + 1) % 3, (i + 2) % 3
+        for j in range(3):
+            j1, j2 = (j + 1) % 3, (j + 2) % 3
+            c[:, j, i] = (J[:, i1, j1] * J[:, i2, j2]
+                          - J[:, i1, j2] * J[:, i2, j1])
+    det = (J[:, 0, 0] * c[:, 0, 0] + J[:, 0, 1] * c[:, 1, 0]
+           + J[:, 0, 2] * c[:, 2, 0])
+    return det, c
+
+
+def affine_packed_factors(J: np.ndarray):
+    """Per-element affine qdata factors from constant Jacobians (float64
+    host): ``(det, dk)`` with ``det`` (ne,) = detJ, the mass factor (mass
+    qdata is w_q·detJ·coeff), and ``dk`` (3|6, ne) the packed-symmetric
+    diffusion factors adj(J)·adj(J)ᵀ/detJ (diffusion qdata is
+    w_q·dk·coeff), in the packing order of ``ops.diffusion.pack_sym``.
+    The det is signed, as in the per-point qdata (``determinant``), so the
+    affine and the per-point paths agree for every orientation."""
+    det, A = _np_det_adj(J)
+    d = J.shape[-1]
+    pairs = ([(0, 0), (1, 1), (0, 1)] if d == 2 else
+             [(0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2)])
+    dk = np.stack(
+        [np.einsum("eb,eb->e", A[:, a], A[:, c]) / det for a, c in pairs],
+        axis=0,
+    )
+    return det, dk
 
 
 def compute_geometric_factors(node_coords, d2q: DofToQuad, dtype=None,

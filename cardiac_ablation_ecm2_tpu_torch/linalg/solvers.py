@@ -1,5 +1,5 @@
 """Matrix-free preconditioned conjugate gradients (counterpart of ``cg``,
-``SolveInfo`` and ``default_dot`` in
+``cg_merged``, ``power_method``, ``SolveInfo`` and ``default_dot`` in
 ``cardiac_ablation_ecm2_tpu/linalg/solvers.py``).
 
 Operators and preconditioners are callables ``x -> Ax``.  The stopping rule
@@ -66,6 +66,59 @@ def cg(
         k += 1
     info = SolveInfo(iterations=k, final_norm=float(nom.abs().sqrt()),
                      converged=bool(nom <= target))
+    return x, info
+
+
+def cg_merged(
+    A: Callable,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    M: Optional[Callable] = None,
+    rel_tol: float = 1e-8,
+    abs_tol: float = 0.0,
+    max_iter: int = 500,
+    dot: Callable = default_dot,
+    check_convergence: bool = True,
+):
+    """Single-reduction (Chronopoulos–Gear) preconditioned CG: the iterates
+    of ``cg`` in exact arithmetic, with both inner products, (r, u) and
+    (w, u), taken together after the apply and every vector update on
+    lagged scalars.  Same stopping rule as ``cg``; one host read an
+    iteration for it, none with ``check_convergence=False``, which runs
+    exactly ``max_iter`` iterations.  Returns (x, SolveInfo)."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    prec = M if M is not None else (lambda v: v)
+
+    def safe(v):
+        return torch.where(v == 0, torch.ones_like(v), v)
+
+    r = b - A(x)
+    u = prec(r)
+    w = A(u)
+    gamma = dot(r, u)
+    delta = dot(w, u)
+    target = torch.clamp_min(rel_tol * rel_tol * gamma, abs_tol * abs_tol)
+    alpha = gamma / safe(delta)
+    beta = torch.zeros((), dtype=b.dtype, device=b.device)
+    p = s = torch.zeros_like(b)
+    k = 0
+    done = bool(gamma <= target)
+    while k < max_iter and not done:
+        p = u + beta * p
+        s = w + beta * s
+        x = x + alpha * p
+        r = r - alpha * s
+        u = prec(r)
+        w = A(u)
+        gamma_new = dot(r, u)
+        delta = dot(w, u)
+        beta = gamma_new / safe(gamma)
+        alpha = gamma_new / safe(delta - beta * gamma_new / safe(alpha))
+        gamma = gamma_new
+        k += 1
+        done = check_convergence and bool(gamma <= target)
+    info = SolveInfo(iterations=k, final_norm=float(gamma.abs().sqrt()),
+                     converged=bool(gamma <= target))
     return x, info
 
 

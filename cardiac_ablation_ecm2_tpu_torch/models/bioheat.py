@@ -5,32 +5,34 @@
 
 discretized as M_ρc dT/dt = −(K_k + M_ω) T + M_ω T_a·1 + b(Q_met), with
 essential (boundary) temperatures.  ``implicit_solve`` solves
-(M_ρc + γ(K_k + M_ω)) k = rhs with k = 0 on essential dofs by Jacobi-PCG.
+(M_ρc + γ(K_k + M_ω)) k = rhs with k = 0 on essential dofs by Jacobi-PCG
+(classic, or the single-reduction ``cg_merged``); ``mult`` is the explicit
+stage M_ρc⁻¹(b − A T), a Jacobi-PCG solve with M_ρc.
 
-Apply paths, chosen at setup as in the JAX package:
+Apply paths, chosen at setup as in the JAX package, on hexes and tets:
 
-* assembled ELL (``assembled_apply="ell"``, the simplex path): M_ρc and
+* assembled ELL (``assembled_apply="ell"``, a simplex option): M_ρc and
   A = K + M_ω are assembled to CSR (``ops/bilinearform.py``) and packed as
   one sliced-ELL pair (``ops/ell.py``); the stage operator and the residual
   are one weighted SpMV each.  The right-hand side and the Jacobi diagonals
   still come from the partial-assembly setup;
-* lane-major (``transposed_apply``, default on hexes): L→E into (nd, ne),
-  one fused stacked matmul apply per quadrature point
-  (``ops/lanemajor.py``), E→L;
-* affine: when every qdata array separates as W ⊗ d (straight-sided
-  elements, constant coefficients) the apply runs on reference matrices;
-* element-major sum-factorized (``ops/mass.py``, ``ops/diffusion.py``):
-  the residual (K + M_ω)T on the non-affine path, and the stage operator
-  when ``transposed_apply`` is off.  Its diffusion half is the fused kernel
-  ``ops/fused_diffusion.py`` on the card.
+* lane-major (``transposed_apply``, the default): L→E into (nd, ne), one
+  fused stacked matmul apply per quadrature point (``ops/lanemajor.py``:
+  Kronecker matrices on hexes, the dense basis on tets), E→L;
+* affine: with constant coefficients on straight-sided simplices the
+  factors come from the vertices in float64
+  (``fem/geom_factors.affine_packed_factors``); elsewhere when every qdata
+  array separates numerically as W ⊗ d.  The apply then runs on reference
+  matrices;
+* element-major (``ops/mass.py``, ``ops/diffusion.py``): the residual
+  (K + M_ω)T off the affine path, and the stage operator when
+  ``transposed_apply`` is off.  On hexes its diffusion half is the fused
+  kernel ``ops/fused_diffusion.py`` on the card (which also takes the
+  bfloat16 qdata of ``qdata_bf16``); on tets it is the einsum chain.
 
 A ``CartesianFESpace`` (``fem/cartesian.py``) brings its gather-free
 structured restriction, which every apply then goes through;
 ``collapse_uniform_qdata`` shares one element's qdata when all are equal.
-
-Tets run only through the assembled ELL: their partial-assembly applies
-(lane-major simplex, affine factors) are not ported, and a tet operator
-without ``assembled_apply="ell"`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,9 +46,13 @@ import torch
 from ..fem.build import basis_for, geom_factors_for, restriction_for
 from ..fem.coefficient import eval_coeff
 from ..fem.fespace import element_node_coords
-from ..fem.geom_factors import compute_geometric_factors
+from ..fem.geom_factors import (
+    affine_element_jacobians,
+    affine_packed_factors,
+    compute_geometric_factors,
+)
 from ..fem.quadinterp import eval_values_t
-from ..linalg.solvers import cg, default_dot
+from ..linalg.solvers import cg, cg_merged, default_dot
 from ..ops import diffusion, lanemajor, mass
 from ..ops.bilinearform import BilinearForm
 from ..ops.ell import MultiELLPair
@@ -88,7 +94,12 @@ class BioheatOperator:
     keeps one element's qdata when every element's is equal to 1e-12
     relative (after the diagonals, before the apply is chosen, as in the JAX
     package); ``collapsed`` says whether it did.  Each solve appends its CG
-    iteration count to ``cg_iterations``.  ``assembled_apply`` "ell"
+    iteration count to ``cg_iterations``.  ``cg_variant`` "merged" solves
+    with the single-reduction ``cg_merged`` (the same iterates, one host
+    read an iteration as ``cg``).  ``qdata_bf16`` stores the diffusion
+    qdata in bfloat16 off the affine path (after the diagonals; the
+    products promote it to the working dtype, and the hex residual's
+    kernel reads it as bfloat16).  ``assembled_apply`` "ell"
     applies the stage operator and the residual through the assembled
     sliced-ELL pair; ``setup_seconds`` then splits the setup time into the
     partial-assembly part and the ELL pair's assembly and packing.
@@ -116,13 +127,15 @@ class BioheatOperator:
         theta_form: bool = False,
         dot_mode: str = "auto",
         cg_variant: str = "classic",
+        qdata_bf16: bool = False,
         transposed_apply: bool = True,
         collapse_uniform_qdata: bool = False,
         assembled_apply: str = "off",
         arrays: Optional[dict] = None,
     ):
-        if cg_variant != "classic":
-            raise NotImplementedError("only cg_variant='classic' is ported")
+        if cg_variant not in ("classic", "merged"):
+            raise ValueError(f"cg_variant must be 'classic' or 'merged', "
+                             f"got {cg_variant!r}")
         if assembled_apply not in ("off", "ell"):
             raise ValueError(f"assembled_apply must be 'off' or 'ell', "
                              f"got {assembled_apply!r}")
@@ -135,6 +148,7 @@ class BioheatOperator:
         self.device = resolve_device(device)
         self.fused_setup, self.theta_form = fused_setup, theta_form
         self.dot_mode = dot_mode
+        self.cg_variant, self.qdata_bf16 = cg_variant, qdata_bf16
         self.transposed_apply = transposed_apply
         self.collapsed = False
         self.cg_iterations = []
@@ -162,6 +176,7 @@ class BioheatOperator:
                 self._set_ell(self._build_ell_pair())
             else:
                 self._choose_apply(self.Mrc_qd, self.Mw_qd, self.K_qd)
+                self._to_bf16()
             if theta_form and not exact_theta:
                 # b_θ = b − A(T_a·1): computed once at setup
                 ones = torch.ones(fes.ndof, dtype=self.dtype, device=self.device)
@@ -259,14 +274,14 @@ class BioheatOperator:
         self._ell_A = None if pair is None else pair.combined(0.0, 1.0)
 
     def _choose_apply(self, qm, qw, qk):
-        """Lane-major arrays, and the affine factors when the qdata
-        separates (same detectors, same order as the JAX package)."""
-        if not self.db.tensor:
-            raise NotImplementedError(
-                "the partial-assembly simplex apply is not ported: use "
-                "assembled_apply='ell' on tets")
+        """Lane-major arrays, and the affine factors where the geometry or
+        the qdata separate: the JAX package's detectors in its order, the
+        vertices of a straight-sided simplex mesh in float64 first (with
+        the factor k·dk formed in float64, then cast), else the numerical
+        W ⊗ d check."""
         self._lane = self._aff = None
-        if not self.transposed_apply:
+        if not (self.transposed_apply
+                and lanemajor.supports(self.db, qk, "diffusion")):
             return
         self._lane = lanemajor.lane_basis(self.db)
         self._qkT = lanemajor.diffusion_qT(qk)       # (6, nq, ne)
@@ -276,15 +291,33 @@ class BioheatOperator:
                 not callable(c) and np.ndim(c) == 0
                 for c in (self.rho_c, self.k, self.w_cb)):
             return
-        # the JAX package first asks affine_element_jacobians, which is None
-        # for every tensor mesh; the numerical check decides
-        W = self.db.W
-        dk = lanemajor.separable_collapse(self._qkT, W)
-        dm = lanemajor.separable_collapse(self._qmT, W)
-        dw = lanemajor.separable_collapse(self._qwT, W)
+        J = affine_element_jacobians(self.fes.mesh)
+        if J is not None:
+            det, dkf = affine_packed_factors(J)
+            dk, dm, dw = (self._tensor(float(c) * f) for c, f in (
+                (self.k, dkf), (self.rho_c, det), (self.w_cb, det)))
+            if self.elem_mask is not None:
+                # inactive elements contribute nothing, as in the qdata (the
+                # JAX package's vertex factors leave them in)
+                m = self._tensor(self.elem_mask)
+                dk, dm, dw = dk * m, dm * m, dw * m
+        else:
+            W = self.db.W
+            dk = lanemajor.separable_collapse(self._qkT, W)
+            dm = lanemajor.separable_collapse(self._qmT, W)
+            dw = lanemajor.separable_collapse(self._qwT, W)
         if dk is not None and dm is not None and dw is not None:
             self._aff = lanemajor.affine_ops(self.db, self._lane)
             self._dk, self._dm, self._dw = dk, dm, dw
+
+    def _to_bf16(self):
+        """``qdata_bf16``: the diffusion qdata (and its lane-major copy) in
+        bfloat16, unless the affine path streams no qdata."""
+        if not self.qdata_bf16 or self._aff is not None:
+            return
+        self.K_qd = self.K_qd.to(torch.bfloat16)
+        if self._lane is not None:
+            self._qkT = lanemajor.diffusion_qT(self.K_qd)
 
     def _load(self, arrays: dict):
         """Take the JAX operator's assembled arrays (see
@@ -320,6 +353,7 @@ class BioheatOperator:
             self._qkT = lanemajor.diffusion_qT(self.K_qd)
             self._qmT = self.Mrc_qd.T.contiguous()
             self._qwT = self.Mw_qd.T.contiguous()
+        self._to_bf16()
 
     def override(self, **kw) -> "BioheatOperator":
         """Shallow copy with some fields (qdata, right-hand side, diagonals)
@@ -385,6 +419,17 @@ class BioheatOperator:
                     self._aff, self._dw, self._dk, self.restr.mult_t(v)))
         return self._apply(self.Mw_qd, self.K_qd, v)
 
+    def _Mrc_apply(self, v):
+        """M_ρc v."""
+        if self._ell is not None:
+            return self._ell.mult0(v)
+        restr = self.restr
+        if self._aff is not None:
+            return restr.mult_transpose_t(lanemajor.affine_mass_apply(
+                self._aff, self._dm, restr.mult_t(v)))
+        return restr.mult_transpose(mass.apply(self.db, self.Mrc_qd,
+                                               restr.mult(v)))
+
     def residual(self, T):
         """RHS of M dT/dt = −A T + b."""
         return self.b_const - self._A_apply(T)
@@ -398,26 +443,37 @@ class BioheatOperator:
     def _zero_ess(self, v):
         return v * self.ess_mask if self.has_ess else v
 
-    # -- TimeDependentOperator protocol -------------------------------
-    def implicit_solve(self, gamma, t, T):
-        """(M_ρc + γ A) k = b − A T, with k = 0 on essential dofs."""
-        rhs = self._zero_ess(self.residual(T))
+    def _solve(self, apply, diag, rhs):
+        """Jacobi-PCG on ``apply`` restricted to the free dofs (identity on
+        the constrained subspace keeps the operator SPD), ``cg`` or
+        ``cg_merged`` by ``cg_variant``; appends the iteration count."""
         mask = self.ess_mask
-        apply = self._stage_apply(gamma)
 
         def lhs(v):
             z = v * mask
-            # identity on the constrained subspace keeps the operator SPD
             return apply(z) * mask + (v - z)
 
-        diag = self.Mrc_diag + gamma * self.A_diag
         if self.has_ess:
             diag = diag * mask + (1.0 - mask)
         inv = 1.0 / diag
-        k, info = cg(lhs, rhs, M=lambda r: inv * r, rel_tol=self.rel_tol,
-                     max_iter=self.max_iter, dot=self._dot())
+        solve = cg_merged if self.cg_variant == "merged" else cg
+        x, info = solve(lhs, rhs, M=lambda r: inv * r, rel_tol=self.rel_tol,
+                        max_iter=self.max_iter, dot=self._dot())
         self.cg_iterations.append(info.iterations)
-        return self._zero_ess(k)
+        return self._zero_ess(x)
+
+    # -- TimeDependentOperator protocol -------------------------------
+    def mult(self, t, T):
+        """The explicit stage dT/dt = M_ρc⁻¹(b − A T), 0 on essential
+        dofs."""
+        rhs = self._zero_ess(self.residual(T))
+        return self._solve(self._Mrc_apply, self.Mrc_diag, rhs)
+
+    def implicit_solve(self, gamma, t, T):
+        """(M_ρc + γ A) k = b − A T, with k = 0 on essential dofs."""
+        rhs = self._zero_ess(self.residual(T))
+        return self._solve(self._stage_apply(gamma),
+                           self.Mrc_diag + gamma * self.A_diag, rhs)
 
 
 def from_jax_arrays(fes, arrays: dict, **params) -> BioheatOperator:
@@ -428,7 +484,8 @@ def from_jax_arrays(fes, arrays: dict, **params) -> BioheatOperator:
     the assembled CSR pair under the keys of the JAX operator's ELL cache
     (``Md``/``Mi``/``Mp`` for M_ρc, ``Ad``/``Ai``/``Ap`` for K + M_ω), the
     qdata ``Mrc_qd``/``Mw_qd``/``K_qd``, or the affine factors
-    ``_dm``/``_dw``/``_dk``, each as the JAX operator holds it (qdata
+    ``_dm``/``_dw``/``_dk`` (a lattice's numerical collapse, or a tet
+    mesh's geometric factors), each as the JAX operator holds it (qdata
     collapsed to one element, (1, nq) and (6, 1, nq), broadcasts); optionally
     with the JAX space's ``gather_map``, which must equal
     ``fes.gather_map``.  ``fes`` is an ``FESpace`` or a

@@ -16,8 +16,12 @@ package's device preconditioners:
   with a true relative residual of 2.85 (``profile_step.py
   chebyshev126`` on an NVIDIA H100); check the true residual, or pass a safe bound to
   ``linalg/smoothers.chebyshev`` directly;
-* ``"lor"``: the all-device LOR multigrid (``ops/lor_device``);
+* ``"lor"``: the all-device LOR multigrid (``ops/lor_device``), hex
+  spaces only (a tet space raises ``ValueError``, as in the JAX package);
 * ``None``: plain CG.
+
+Hex and tet spaces both run: the operator is ``BilinearForm.assemble``'s
+(lane-major or affine apply).
 
 It runs eagerly on ``device`` (``None``: the card), one host read per CG
 iteration (and per coarse CG iteration inside each LOR V-cycle).

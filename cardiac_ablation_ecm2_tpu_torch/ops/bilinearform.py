@@ -2,13 +2,17 @@
 ``assemble`` and ``assemble_matrix`` subset of ``BilinearForm`` in
 ``cardiac_ablation_ecm2_tpu/ops/bilinearform.py``).
 
-PARTIAL assembly (``assemble``, hex spaces, generic or Cartesian) builds the
-qdata of every term and returns a matrix-free :class:`PAOperator`: the terms
-whose qdata separate as W ⊗ d (straight-sided hexes, constant coefficients)
-apply through reference matrices, the others through the lane-major
-per-point applies, all in one restriction round trip (``ops/lanemajor.py``,
-as the JAX package's ``_build_lane_group``).  Its diagonal goes through the
-element-major PA diagonals and the E→L sum.  Scalar coefficients only.
+PARTIAL assembly (``assemble``: hex spaces, generic or Cartesian, and
+simplex spaces) builds the qdata of every term and returns a matrix-free
+:class:`PAOperator`: the affine terms apply through reference matrices, the
+others through the lane-major per-point applies, all in one restriction
+round trip (``ops/lanemajor.py``, as the JAX package's
+``_build_lane_group``).  A term is affine when its coefficient is a
+constant on a straight-sided simplex mesh (factors from the vertices in
+float64, ``fem/geom_factors.affine_packed_factors``), or else when its
+qdata separate numerically as W ⊗ d (parallelepiped hexes).  Its diagonal
+goes through the element-major PA diagonals and the E→L sum.  Scalar
+coefficients only.
 
 FULL assembly (``assemble_matrix``, simplex spaces) goes to scipy CSR.
 The quadrature and precision are the JAX package's: the space's rule
@@ -34,9 +38,13 @@ import torch
 from ..fem.build import basis_for, geom_factors_for, restriction_for
 from ..fem.coefficient import eval_coeff
 from ..fem.fespace import element_node_coords
-from ..fem.geom_factors import compute_geometric_factors
+from ..fem.geom_factors import (
+    affine_element_jacobians,
+    affine_packed_factors,
+    compute_geometric_factors,
+)
 from ..fem.quadinterp import DeviceBasis
-from ..utils.config import resolve_device
+from ..utils.config import config, resolve_device
 from . import diffusion, lanemajor, mass
 from .block_gather import segment_sum
 from .operators import LinearOperator
@@ -123,19 +131,46 @@ class PAOperator:
         return LinearOperator((self.ndof, self.ndof), self.mult, self.diagonal)
 
 
-def _build_lane_group(bound, db):
+def _geom_affine_term(kind, coeff, geo, qdata):
+    """A term's affine factors from the host-float64 geometry ``geo`` =
+    (det, dk), in the qdata's dtype and device: a leading component axis
+    (mass gets a singleton one); None unless the coefficient is a constant
+    scalar."""
+    if coeff is None:
+        cs = 1.0
+    elif not callable(coeff) and np.ndim(coeff) == 0:
+        cs = float(coeff)
+    else:
+        return None
+    det, dk = geo
+    f = det[None, :] if kind == "mass" else dk
+    return torch.as_tensor(cs * f, dtype=qdata.dtype, device=qdata.device)
+
+
+def _build_lane_group(coeffs, bound, db, mesh):
     """Partition the terms into the fused lane-major group and the rest, as
-    the JAX package's ``_build_lane_group``: a term whose transposed qdata
-    separates as W ⊗ d joins as affine factors (``lanemajor.try_affine``),
-    else as transposed qdata.  Hex meshes are never affine by construction
-    in the JAX package, so the numerical check alone decides."""
+    the JAX package's ``_build_lane_group``: on a straight-sided simplex
+    mesh a term with a constant coefficient joins as affine factors from
+    the vertices (float32 qdata of sliver tets defeat a numerical check);
+    otherwise a term whose transposed qdata separate as W ⊗ d joins as
+    affine factors (``lanemajor.try_affine``), else as transposed qdata.
+    ``coeffs`` are the terms' coefficients, in the order of ``bound``."""
+    geo = None
+    if config.affine_collapse != "off":
+        J = affine_element_jacobians(mesh)
+        if J is not None:
+            geo = affine_packed_factors(J)
     lane_terms, aff_terms, std = [], [], []
-    for t in bound:
+    for coeff, t in zip(coeffs, bound):
         if not lanemajor.supports(db, t.qdata, t.kind):
             std.append(t)
             continue
-        qT = lanemajor.transpose_qdata(t.kind, t.qdata)
-        d = lanemajor.try_affine(t.kind, qT, db)
+        d = (_geom_affine_term(t.kind, coeff, geo, t.qdata)
+             if geo is not None else None)
+        qT = None
+        if d is None:
+            qT = lanemajor.transpose_qdata(t.kind, t.qdata)
+            d = lanemajor.try_affine(t.kind, qT, db)
         if d is not None:
             aff_terms.append((t.kind, d))
         else:
@@ -166,12 +201,10 @@ class BilinearForm:
         return self
 
     def assemble(self, dtype=None) -> PAOperator:
-        """PARTIAL assembly on a hex space: qdata of every term, and the
-        matrix-free operator over the space's restriction and basis (shared
-        through ``fem/build.py``)."""
+        """PARTIAL assembly: qdata of every term, and the matrix-free
+        operator over the space's restriction and basis (shared through
+        ``fem/build.py``)."""
         fes, dev = self.fes, self.device
-        if not fes.dof_to_quad(self.nq1d).tensor:
-            raise NotImplementedError("partial assembly covers hex spaces")
         gf = geom_factors_for(fes, self.nq1d, dtype, dev)
         db = basis_for(fes, dtype, dev, self.nq1d)
         bound = []
@@ -183,7 +216,8 @@ class BilinearForm:
             qd = (diffusion.setup_packed(gf, cq) if kind == "diffusion"
                   else mass.setup(gf, cq))
             bound.append(_BoundTerm(kind, qd))
-        lane, std = _build_lane_group(bound, db)
+        lane, std = _build_lane_group([c for _, c in self._terms], bound, db,
+                                      fes.mesh)
         return PAOperator(terms=tuple(bound), ndof=fes.ndof_scalar,
                           restr=restriction_for(fes, dev), db=db, lane=lane,
                           std_terms=std)

@@ -2,9 +2,11 @@
 ``cardiac_ablation_ecm2_tpu/ops/diffusion.py``, 3D, scalar coefficients).
 
 Per quadrature point ``D = (w/detJ) · adj(J) · c · adj(J)ᵀ``; the apply
-``Gᵀ (D ∘ (G u))`` is ``ops/fused_diffusion.diffusion_apply`` (the
-hand-written kernel on the card, the einsum chain on the CPU), re-exported
-here as ``apply``.  Packed symmetric qdata is (6, ne, nq) in the order
+``Gᵀ (D ∘ (G u))`` on a tensor (hex) basis is
+``ops/fused_diffusion.diffusion_apply`` (the hand-written kernel on the
+card, the einsum chain on the CPU); on a dense (simplex) basis it is the
+einsum chain on any device, as the JAX package's ``apply`` is plain XLA.
+Packed symmetric qdata is (6, ne, nq) in the order
 [D00, D11, D22, D01, D02, D12].
 """
 
@@ -14,7 +16,7 @@ import torch
 
 from ..fem.geom_factors import GeometricFactors, adjugate
 from ..fem.quadinterp import DeviceBasis, contract_q_to_e
-from .fused_diffusion import diffusion_apply as apply  # noqa: F401
+from .fused_diffusion import diffusion_apply, diffusion_apply_plain
 
 #: packed index of each (a, b) component
 _PIDX = {(0, 0): 0, (1, 1): 1, (2, 2): 2, (0, 1): 3, (1, 0): 3,
@@ -57,6 +59,14 @@ def pack_sym(D: torch.Tensor) -> torch.Tensor:
         [D[..., 0, 0], D[..., 1, 1], D[..., 2, 2],
          D[..., 0, 1], D[..., 0, 2], D[..., 1, 2]], dim=0
     )
+
+
+def apply(db: DeviceBasis, qdata: torch.Tensor, u_e: torch.Tensor) -> torch.Tensor:
+    """(ne, nd) → (ne, nd): Gᵀ (D ∘ (G u)) from packed qdata (6, ne|1, nq):
+    the fused kernel on a tensor basis, the einsum chain on a dense one."""
+    if db.tensor:
+        return diffusion_apply(db, qdata, u_e)
+    return diffusion_apply_plain(db, qdata, u_e)
 
 
 def diagonal(db: DeviceBasis, qdata: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,10 @@
 
 for e (ne, nd) E-vectors and packed symmetric qdata (6, ne, nq) in the order
 [D00, D11, D22, D01, D02, D12] (or (6, 1, nq): one element's qdata for all,
-as the uniform collapse leaves it).  G_x = B⊗B⊗G, G_y = B⊗G⊗B, G_z = G⊗B⊗B
+as the uniform collapse leaves it).  The qdata are of e's dtype, or
+bfloat16 beside float32 e (the bioheat operator's ``qdata_bf16``): the
+kernel widens each value as it loads it, and the plain version's products
+promote the same values to float32.  G_x = B⊗B⊗G, G_y = B⊗G⊗B, G_z = G⊗B⊗B
 over the basis' 1D factors ``B1``/``G1``; dofs and points lex, x fastest.
 
 :func:`diffusion_apply` dispatches on the device of ``e``: a CUDA tensor
@@ -44,7 +47,8 @@ def build() -> ctypes.CDLL:
         args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
-        for name in ("fused_diffusion_f32", "fused_diffusion_f64"):
+        for name in ("fused_diffusion_f32", "fused_diffusion_f64",
+                     "fused_diffusion_f32_bf16q"):
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
@@ -87,8 +91,12 @@ def _check(db: DeviceBasis, qdata: torch.Tensor, e: torch.Tensor):
                          f"{tuple(qdata.shape)}")
     if e.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"unsupported dtype {e.dtype}")
+    if qdata.dtype != e.dtype and not (qdata.dtype == torch.bfloat16
+                                       and e.dtype == torch.float32):
+        raise ValueError(f"qdata is {qdata.dtype}, e is {e.dtype}: the kernel "
+                         f"takes qdata of e's dtype, or bfloat16 with float32")
     for name, t in (("qdata", qdata), ("B1", db.B1), ("G1", db.G1)):
-        if t.dtype != e.dtype:
+        if name != "qdata" and t.dtype != e.dtype:
             raise ValueError(f"{name} is {t.dtype}, e is {e.dtype}")
         if t.device != e.device:
             raise ValueError(f"{name} on {t.device}, e on {e.device}")
@@ -113,8 +121,12 @@ def diffusion_apply(db: DeviceBasis, qdata: torch.Tensor,
     if ne == 0:
         return out
     lib = build()
-    fn = (lib.fused_diffusion_f64 if e.dtype == torch.float64
-          else lib.fused_diffusion_f32)
+    if e.dtype == torch.float64:
+        fn = lib.fused_diffusion_f64
+    elif qdata.dtype == torch.bfloat16:
+        fn = lib.fused_diffusion_f32_bf16q
+    else:
+        fn = lib.fused_diffusion_f32
     nq = qdata.shape[2]
     q_plane = qdata.shape[1] * nq
     q_elem = nq if qdata.shape[1] == ne else 0

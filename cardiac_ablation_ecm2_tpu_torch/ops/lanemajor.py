@@ -1,12 +1,14 @@
 """Lane-major (transposed) full-matrix PA applies (counterpart of
-``cardiac_ablation_ecm2_tpu/ops/lanemajor.py``, 3D tensor bases).
+``cardiac_ablation_ecm2_tpu/ops/lanemajor.py``, 3D).
 
 The E-vector is laid out ``(nd, ne)`` and every basis contraction is one
-``(k·nq, nd) @ (nd, ne)`` matmul with the element axis as the long one.  The
-full matrices are Kronecker products of the 1D ``B1``/``G1`` factors;
-E-vectors are lex-flat with x fastest, so the matrix acting on a flattened
-``(k, j, i)`` tensor is ``kron(Fz, Fy, Fx)``.  Packed symmetric diffusion
-qdata is ``[00, 11, 22, 01, 02, 12]``.
+``(k·nq, nd) @ (nd, ne)`` matmul with the element axis as the long one.  On
+tensor (hex) bases the full matrices are Kronecker products of the 1D
+``B1``/``G1`` factors; E-vectors are lex-flat with x fastest, so the matrix
+acting on a flattened ``(k, j, i)`` tensor is ``kron(Fz, Fy, Fx)``.  Dense
+(simplex) bases already are the full matrices ``B (nq, nd)`` and
+``G (nq, nd, 3)``.  Packed symmetric diffusion qdata is
+``[00, 11, 22, 01, 02, 12]``.
 
 The contractions are ``torch.matmul`` in full float32 (TF32 is off, see
 ``utils/config.py``), as the JAX package leaves them to XLA at HIGHEST.
@@ -40,29 +42,39 @@ class LaneBasis:
 
 
 def lane_basis(db: DeviceBasis) -> LaneBasis:
-    """Kronecker full matrices in the basis dtype (as the JAX package forms
-    them on the host from the device-dtype 1D factors)."""
-    B1 = db.B1.cpu().numpy()
-    G1 = db.G1.cpu().numpy()
-    Bf = np.kron(B1, np.kron(B1, B1))
-    G = (
-        np.kron(B1, np.kron(B1, G1)),
-        np.kron(B1, np.kron(G1, B1)),
-        np.kron(G1, np.kron(B1, B1)),
-    )
-    dev = db.B1.device
-    Bft = torch.as_tensor(Bf, device=dev)
-    Gt = tuple(torch.as_tensor(g, device=dev) for g in G)
+    """The full matrices in the basis dtype: Kronecker products of a tensor
+    basis' 1D factors (formed on the host from the device-dtype factors, as
+    the JAX package forms them), or a dense basis' own ``B`` and
+    ``G[:, :, d]``."""
+    if db.tensor:
+        B1 = db.B1.cpu().numpy()
+        G1 = db.G1.cpu().numpy()
+        dev = db.B1.device
+        Bft = torch.as_tensor(np.kron(B1, np.kron(B1, B1)), device=dev)
+        Gt = tuple(torch.as_tensor(g, device=dev) for g in (
+            np.kron(B1, np.kron(B1, G1)),
+            np.kron(B1, np.kron(G1, B1)),
+            np.kron(G1, np.kron(B1, B1)),
+        ))
+    else:
+        Bft = db.B
+        Gt = tuple(db.G[:, :, d].contiguous() for d in range(3))
     return LaneBasis(Bf=Bft, G=Gt, S=torch.cat((Bft,) + Gt, dim=0),
                      SG=torch.cat(Gt, dim=0))
 
 
 def supports(db: DeviceBasis, qdata=None, kind: str = "",
              max_nd: int = 256) -> bool:
-    """Whether the lane-major path applies: a tensor (hex) basis with
-    nd ≤ ``max_nd``, and diffusion qdata in the packed (6, ne, nq)
-    layout.  The dense (simplex) branch of the JAX package is not ported."""
-    if not db.tensor or db.n1d ** 3 > max_nd:
+    """Whether the lane-major path applies: full matrices with nd ≤
+    ``max_nd`` (n1³ on a tensor basis, the columns of a dense one), and
+    diffusion qdata in the packed (6, ne, nq) layout."""
+    if db.tensor:
+        nd = db.n1d ** 3
+    elif db.B is not None and db.G is not None:
+        nd = db.B.shape[1]
+    else:
+        return False
+    if nd > max_nd:
         return False
     if kind == "diffusion" and qdata is not None:
         return qdata.dim() == 3 and qdata.shape[0] == 6
@@ -151,8 +163,9 @@ class AffineOps:
 
 
 def affine_ops(db: DeviceBasis, lb: LaneBasis) -> AffineOps:
-    """Reference matrices from float64 quadrature sums, stored in the basis
-    dtype."""
+    """Reference matrices from float64 quadrature sums over the full
+    matrices of the device-dtype basis (so a float32 run keeps the JAX
+    package's bits), stored in the basis dtype."""
     Bf = lb.Bf.cpu().double().numpy()
     G = [g.cpu().double().numpy() for g in lb.G]
     W = db.W.cpu().double().numpy()
@@ -194,6 +207,12 @@ def affine_mass_diffusion_apply(af: AffineOps, dm, dk, eT,
     scales = [dm] + [dk[c] if gamma is None else gamma * dk[c]
                      for c in range(dk.shape[0])]
     return _scaled_rows((af.Mhat,) + af.Khat, scales, eT)
+
+
+def affine_mass_apply(af: AffineOps, d: torch.Tensor,
+                      eT: torch.Tensor) -> torch.Tensor:
+    """M̂ @ (d ∘ eT); ``d`` is (ne|1,)."""
+    return af.Mhat @ (d[None, :] * eT)
 
 
 def affine_diffusion_apply(af: AffineOps, d: torch.Tensor,

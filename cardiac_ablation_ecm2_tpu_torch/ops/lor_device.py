@@ -167,7 +167,12 @@ def make_lor_multigrid(fes, diffusion_coeff=1.0, mass_coeff=None,
     ``linalg.multigrid.Multigrid`` whose ``setup_seconds`` splits the setup
     (``lor_matrices``, ``lor_restriction``, ``order1_space`` on the host,
     ``coarse_level``, ``transfer``, ``smoothers``: the power-method
-    estimates); ``.preconditioner()`` drops into any CG."""
+    estimates); ``.preconditioner()`` drops into any CG.  Hex spaces only,
+    as in the JAX package: a simplex space raises ``ValueError``."""
+    if not fes.d2q.tensor:
+        raise ValueError("the LOR multigrid needs a hex (tensor-product) "
+                         "space; on a simplex (tet) space use the 'jacobi' "
+                         "or 'chebyshev' preconditioner")
     from ..fem.transfer import PTransfer
     from ..linalg.multigrid import MGLevel, Multigrid, ess_tensor
     from ..linalg.smoothers import chebyshev

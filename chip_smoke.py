@@ -164,9 +164,42 @@ Phases, in order; any failure raises and the exit code is non-zero:
    counterpart of ``__graft_entry__.entry``) on the card and on the CPU
    in float64 and float32: θ = T − 37 within 1e-10·max|θ| in float64, T
    within 1e-6·max|T| in float32.
+16. The tet partial-assembly step (``BENCH_MESH=cardiac-tet BENCH_N=66``
+   without ``BENCH_ELL``, the JAX bench's tet default), after [7] on its
+   mesh and space: first tet n=12 in float64 on CUDA and on CPU tensors
+   (θ within 1e-10 relative, equal CG iterations); then n=66 in float32
+   with [7]'s settings: the apply it took (the affine one expected: the
+   vertices' float64 factors), host and device setup seconds, one warm-up
+   and two timed steps beside [7]'s ELL s/step, CG iterations per solve,
+   θ_max within 2e-3 relative of MFEM's 1.19519539 and printed beside
+   [7]'s, peak memory and the launches of the transposing gather and the
+   segment-sum, which must have launched; then every kernel and layout of
+   its (956,820 × 10) restriction bitwise against plain in float32 and
+   float64, the float32 calls timed against plain, ``index_select`` /
+   ``index_add_`` and the least-work bound.
+17. The coupled RF-ablation app on the tet mesh ([12]'s settings): first
+   tet n=12 in float64, CUDA against CPU tensors with σ(T) and with k(T)
+   (Φ, SAR, T, Ω within 1e-10, equal CG counts); then n=66 in float32 as
+   [12b] (the RF solve's seconds, iterations and true residual ≤ 1e-5,
+   s/step, one σ(T) re-solve and coupled step, P = ΦᵀAΦ within 1e-4, Ω ≥ 0
+   and non-decreasing, launches of the restriction kernels; the dense
+   basis runs no fused diffusion).
+18. The bioheat step's other modes on [4]'s space (run right after [4]):
+   ``cg_variant="merged"`` and ``qdata_bf16=True``, each one warm-up and
+   two timed steps, θ_max within 2e-3 of MFEM's 1.21339844, CG per solve
+   printed beside [4]'s; the bf16 run must launch the fused diffusion
+   kernel's bfloat16-qdata instantiation, which is then held to its plain
+   version on the run's own bfloat16 K_qd within [8]'s float32 tolerance
+   (and timed beside its bound at 2-byte qdata); then one explicit RK4 step
+   (``BioheatOperator.mult``, an M_ρc solve a stage) on cardiac hex n=16
+   in float64, CUDA against CPU tensors (1e-10, equal CG counts).
 
 The last two lines of standard output are one JSON object describing the
-kernels and one JSON object with the device.  The ``take_along_rows`` and
+kernels and one JSON object with the device.  The ``gather_transpose`` and
+``segment_sum`` entries also carry ``tet_*`` fields, their float32 numbers
+on [16]'s (956,820 × 10) restriction with the launches of [16]'s run; the
+``fused_diffusion`` entry carries ``bf16_*`` fields, its bfloat16-qdata
+instantiation on [18]'s hex n=126 K_qd with the launches of that run.  The ``take_along_rows`` and
 ``take_along_lanes`` entries report t1 and t2; their ``probes`` field
 holds u1's and u2's numbers (each width), with the launch floor; every
 probe entry's ``measures`` says that its times run out of L2 while its
@@ -627,7 +660,7 @@ def report_run(tag, op, T, theta_ref, ref_name="MFEM"):
 
 def phase_main(dev, mesh, fes, host_s):
     """Setup and three steps of the benchmark configuration in float32;
-    returns the launch counts of this run."""
+    returns the launch counts of this run, CG per solve and s/step."""
     from cardiac_ablation_ecm2_tpu_torch.models import bioheat
 
     start_main_path()
@@ -660,7 +693,7 @@ def phase_main(dev, mesh, fes, host_s):
     check(launches["fused_diffusion"] > 0,
           "the main path's residual launched the fused diffusion kernel")
     check_operator_diffusion("[4]", "hex n=126 K_qd", op)
-    return launches
+    return launches, per_solve, s_step
 
 
 def tet_space(n):
@@ -820,7 +853,8 @@ def phase_tet_small(dev):
 
 def phase_tet_main(dev, mesh, fes, host_s):
     """``BENCH_MESH=cardiac-tet BENCH_N=66 BENCH_ELL=1``: setup and three
-    steps in float32; returns the launch counts of this run."""
+    steps in float32; returns the launch counts of this run and its s/step,
+    θ_max and CG per solve."""
     from cardiac_ablation_ecm2_tpu_torch.models import bioheat
 
     start_main_path()
@@ -852,18 +886,145 @@ def phase_tet_main(dev, mesh, fes, host_s):
     check(abs(per_solve - MFEM_TET66["cg_iters"]) <= 0.15 * MFEM_TET66["cg_iters"],
           "tet n=66 CG iterations per solve within 15% of MFEM's 39.78")
     check(launches["ell_spmv"] > 0, "the tet main path launched the ELL kernel")
+    return launches, dict(s_step=s_step, theta_max=float(T.max()),
+                          per_solve=per_solve)
+
+
+def phase_tet_pa(kc, dev, mesh, fes, host_s, ell):
+    """[16] ``BENCH_MESH=cardiac-tet BENCH_N=66`` on the partial-assembly
+    path, on [7]'s mesh and space (``ell``: [7]'s s/step, θ_max and CG per
+    solve): tet n=12 CUDA against CPU first, then setup and three steps in
+    float32, then the restriction's kernels at this path's shapes.  Returns
+    the launch counts of the run."""
+    from cardiac_ablation_ecm2_tpu_torch.models import bioheat
+
+    t0 = time.perf_counter()
+    _, small, _ = tet_space(12)
+    small_cuda_vs_cpu("[16] tet n=12 partial assembly", small, dev)
+    del small
+    start_main_path()
+    t1 = time.perf_counter()
+    op = bioheat.BioheatOperator(fes, q_met=source, dtype="float32",
+                                 device=dev, **SETTINGS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t1
+    check(op._ell is None and op._lane is not None,
+          "[16] tets take a partial-assembly lane-major apply")
+    apply = "affine (vertex factors)" if op._aff is not None else "per-point lane-major"
+    T, s_step, host_step = timed_steps(op)
+    launches = main_path_launches()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[16] cardiac tet n=66 order 2 f32, partial assembly: {mesh.ne} tets, "
+          f"{fes.ndof} dofs; apply taken: {apply}")
+    print(f"[16] host setup ([7]'s): mesh {host_s[0]:.2f} s, FESpace "
+          f"{host_s[1]:.2f} s; operator {setup_s:.2f} s (partial-assembly "
+          f"setup {op.setup_seconds['pa']:.2f} s); max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB")
+    print(f"[16] s/step {s_step:.6f} (CUDA events; host clock {host_step:.6f}), "
+          f"{fes.ndof / s_step:.1f} DOF/s; [7] ELL {ell['s_step']:.6f} s/step "
+          f"in this run; MFEM CPU {MFEM_TET66['s_step']} s/step")
+    theta_max, per_solve, rel = report_run("[16]", op, T, MFEM_TET66["theta_max"])
+    print(f"[16] CG per solve {per_solve:.2f} beside [7]'s {ell['per_solve']:.2f} "
+          f"and MFEM's {MFEM_TET66['cg_iters']}; theta_max rel diff to [7]'s "
+          f"{ell['theta_max']:.8f}: "
+          f"{abs(theta_max - ell['theta_max']) / ell['theta_max']:.3e}")
+    print(f"[16] launches: " + ", ".join(f"{k} {launches[k]}"
+                                         for k in RESTRICTION_KERNELS)
+          + f", ell_spmv {launches['ell_spmv']}, fused diffusion "
+          f"{launches['fused_diffusion']}")
+    check(rel <= 2e-3, "[16] tet n=66 theta_max within 2e-3 of MFEM")
+    for name in ("gather_transpose", "segment_sum"):
+        check(launches[name] > 0, f"[16] the tet partial-assembly path launched {name}")
+    r = op.restr
+    del op, T
+    torch.cuda.empty_cache()
+    check_restriction(kc, r, "tet ", "[16]", seed=16, timed=True)
+    print(f"[16] phase {time.perf_counter() - t0:.1f} s")
     return launches
 
 
-def diffusion_bound(ne, n1, nq1, dtype):
+def phase_ablation_tet(dev, mesh, host_s):
+    """[17] The coupled app on the tet mesh: tet n=12 CUDA against CPU,
+    then [12b]'s run on [7]'s mesh."""
+    t0 = time.perf_counter()
+    small, _, _ = tet_space(12)
+    phase_ablation_small(dev, small, "[17]", "cardiac tet n=12")
+    phase_ablation_main(dev, mesh, host_s[0], "[17]", "cardiac tet n=66",
+                        "[7]'s mesh", RESTRICTION_KERNELS)
+    print(f"[17] phase {time.perf_counter() - t0:.1f} s")
+
+
+def phase_modes(dev, fes, hex_run):
+    """[18] The bioheat step's merged CG and bfloat16 qdata on [4]'s space
+    (``hex_run``: [4]'s CG per solve and s/step), then one explicit RK4
+    step CUDA against CPU at n=16.  Returns the launches of the bf16 run
+    and the bf16 kernel's numbers for the kernels line."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg import ode
+    from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
+    from cardiac_ablation_ecm2_tpu_torch.models import bioheat
+
+    t0 = time.perf_counter()
+    per_solve4, s_step4 = hex_run
+    out = {}
+    for mode, kw in (("merged CG", dict(cg_variant="merged")),
+                     ("bf16 qdata", dict(qdata_bf16=True))):
+        start_main_path()
+        op = bioheat.BioheatOperator(fes, q_met=source, dtype="float32",
+                                     device=dev, **dict(SETTINGS, **kw))
+        T, s_step, _ = timed_steps(op)
+        launches = main_path_launches()
+        print(f"[18] hex n=126 {mode}: s/step {s_step:.6f} (CUDA events) beside "
+              f"[4]'s {s_step4:.6f}")
+        _, per_solve, rel = report_run(f"[18] {mode}", op, T, MFEM_THETA_MAX)
+        print(f"[18] {mode}: CG per solve {per_solve:.2f} beside [4]'s "
+              f"{per_solve4:.2f}; launches fused diffusion "
+              f"{launches['fused_diffusion']}")
+        check(rel <= 2e-3, f"[18] {mode}: theta_max within 2e-3 of MFEM")
+        if "qdata_bf16" in kw:
+            check(op.K_qd.dtype == torch.bfloat16,
+                  "[18] the bf16 run's K_qd is bfloat16")
+            check(launches["fused_diffusion"] > 0,
+                  "[18] the bf16 run launched the bf16-qdata fused diffusion")
+            gen = torch.Generator(device=dev).manual_seed(18)
+            e = torch.randn(fes.mesh.ne, op.db.n1d ** 3, generator=gen,
+                            device=dev)
+            err, numbers = check_diffusion("hex n=126 bf16 K_qd", op.db,
+                                           op.K_qd, e, timed=True, tag="[18]")
+            out = {f"bf16_{k}": v for k, v in numbers.items() if k != "bound_by"}
+            out.update(bf16_max_abs_err=err,
+                       bf16_launches=launches["fused_diffusion"])
+        del op, T
+    small = FESpace(make_cardiac_hex_mesh(16, lengths=(L, L, L / 2),
+                                          electrode_radius=0.004), 2)
+    ops = [bioheat.BioheatOperator(small, q_met=source, dtype="float64", device=d,
+                                   **SETTINGS) for d in (dev, "cpu")]
+    theta = torch.rand(small.ndof, generator=torch.Generator().manual_seed(18),
+                       dtype=torch.float64) * 0.5
+    Ts = [ode.select("rk4").step(op, theta.to(op.device) * op.ess_mask,
+                                 0.0, 0.01)[0].cpu() for op in ops]
+    rel = float((Ts[0] - Ts[1]).abs().max() / Ts[1].abs().max())
+    print(f"[18] explicit RK4 step (mult), hex n=16 f64, {small.ndof} dofs: "
+          f"CUDA vs CPU rel diff {rel:.3e}, CG iterations "
+          f"{ops[0].cg_iterations} vs {ops[1].cg_iterations}")
+    check(rel <= 1e-10, "[18] explicit step: CUDA within 1e-10 of the CPU")
+    check(ops[0].cg_iterations == ops[1].cg_iterations,
+          "[18] explicit step: equal CG iterations")
+    print(f"[18] phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def diffusion_bound(ne, n1, nq1, dtype, qdtype=None):
     """Least bytes of one fused diffusion apply (e read, y written, the six
-    qdata planes read, each once), its operations (the sum-factorized chain:
-    six 1D passes and the packed-D product) and the bound in ms, the larger
-    of bytes over the HBM rate and operations over the type's peak."""
+    qdata planes of ``qdtype``, by default ``dtype``, read, each once), its
+    operations (the sum-factorized chain: six 1D passes and the packed-D
+    product) and the bound in ms, the larger of bytes over the HBM rate and
+    operations over the type's peak."""
     nd, nq = n1 ** 3, nq1 ** 3
     s1, s2 = n1 * n1 * nq1, n1 * nq1 * nq1
     elsize = torch.tensor([], dtype=dtype).element_size()
-    nbytes = ne * (2 * nd + 6 * nq) * elsize
+    qsize = torch.tensor([], dtype=qdtype or dtype).element_size()
+    nbytes = ne * (2 * nd * elsize + 6 * nq * qsize)
     flops = ne * 2 * (2 * s1 * n1 + 3 * s2 * n1 + 3 * nq * n1 + 3 * s2 * nq1
                       + 3 * s1 * nq1 + 2 * nd * nq1) + ne * nq * 15
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -906,7 +1067,8 @@ def check_diffusion(label, db, qd, e, timed=False, tag="[8]"):
     err = float((y - ref).abs().max())
     rel = err / float(ref.abs().max())
     msg = (f"{tag} {label}: ne={e.shape[0]} n1={db.n1d} nq1={db.nq1d} "
-           f"{str(e.dtype)[6:]}, kernel vs plain {rel:.2e} of max|y|")
+           f"{str(e.dtype)[6:]} (qdata {str(qd.dtype)[6:]}), kernel vs plain "
+           f"{rel:.2e} of max|y|")
     check(rel <= tol, f"{label}: fused diffusion within {tol:g} of plain")
     if not timed:
         print(msg)
@@ -917,7 +1079,7 @@ def check_diffusion(label, db, qd, e, timed=False, tag="[8]"):
     comp_err = float((comp() - ref).abs().max()) / float(ref.abs().max())
     lib_ms = time_ms(comp)
     nbytes, flops, bound, by = diffusion_bound(e.shape[0], db.n1d, db.nq1d,
-                                               e.dtype)
+                                               e.dtype, qd.dtype)
     print(msg + f"; kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s, "
           f"{flops / ms / 1e6:.1f} GFLOP/s), plain {plain_ms:.4f} ms, cuBLAS "
           f"composition {lib_ms:.4f} ms (rel diff {comp_err:.1e}); "
@@ -1259,13 +1421,12 @@ def rel_diff(a, b):
     return float((a.cpu() - b).abs().max() / b.abs().max())
 
 
-def phase_ablation_small(dev):
-    """[12a] The coupled app on cardiac hex n=16 in float64, CUDA against
-    CPU tensors, with σ(T) re-solved every step and with k(T)."""
-    from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
+def phase_ablation_small(dev, mesh, tag="[12a]", what="cardiac hex n=16"):
+    """[12a] The coupled app on a small mesh (cardiac hex n=16; [17]: tet
+    n=12) in float64, CUDA against CPU tensors, with σ(T) re-solved every
+    step and with k(T)."""
     from cardiac_ablation_ecm2_tpu_torch.models.ablation import AblationSim
 
-    mesh = make_cardiac_hex_mesh(16, lengths=(L, L, L / 2), electrode_radius=0.004)
     for label, extra in (("sigma(T)", dict(sigma_T=sigma_of_T, resolve_every=1)),
                          ("k(T)", dict(k_T=k_of_T))):
         sims = [AblationSim(mesh=mesh, dtype="float64", device=d, **ABLATION,
@@ -1287,13 +1448,13 @@ def phase_ablation_small(dev):
             fields["SAR re-solved"] = (sims[0].sar_q, sims[1].sar_q)
             counts = [c + (s.rf_op.cg_iterations,) for c, s in zip(counts, sims)]
         rels = {k: rel_diff(*v) for k, v in fields.items()}
-        print(f"[12a] ablation {label}, cardiac hex n=16 f64, {sims[0].fes.ndof} "
+        print(f"{tag} ablation {label}, {what} f64, {sims[0].fes.ndof} "
               f"dofs: CUDA vs CPU rel diff "
               + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
               + f"; CG (RF solve, stages, re-solves) CUDA {counts[0]} CPU {counts[1]}")
         check(max(rels.values()) <= 1e-10,
-              f"[12a] {label}: CUDA within 1e-10 of the CPU")
-        check(counts[0] == counts[1], f"[12a] {label}: equal CG counts")
+              f"{tag} {label}: CUDA within 1e-10 of the CPU")
+        check(counts[0] == counts[1], f"{tag} {label}: equal CG counts")
 
 
 def rf_system_check(sim):
@@ -1315,9 +1476,12 @@ def rf_system_check(sim):
     return res, float(torch.dot(phi.double(), A.mult(phi).double()))
 
 
-def phase_ablation_main(dev, mesh, mesh_s):
-    """[12b] The coupled app at full width on the [4] mesh; returns the
-    launch counts of this run."""
+def phase_ablation_main(dev, mesh, mesh_s, tag="[12b]",
+                        what="cardiac hex n=126", mesh_of="the [4] mesh",
+                        kernels=RESTRICTION_KERNELS + ("fused_diffusion",)):
+    """[12b] The coupled app at full width on the [4] mesh ([17]: on [7]'s
+    tet mesh); ``kernels`` must have launched.  Returns the launch counts
+    of this run."""
     from cardiac_ablation_ecm2_tpu_torch.models import rf_laplace
     from cardiac_ablation_ecm2_tpu_torch.models.ablation import AblationSim
 
@@ -1353,34 +1517,34 @@ def phase_ablation_main(dev, mesh, mesh_s):
     res, phi_a_phi = rf_system_check(sim)
     P = float(rf_laplace.total_power(fes, rf.sar_q))
     T_max, om_max = float(T.max()), float(om.max())
-    print(f"[12b] coupled RF ablation, cardiac hex n=126 order 2 f32: {mesh.ne} "
-          f"hexes, {fes.ndof} dofs; electrode 2, ground 3, body 1, 30 V")
-    print(f"[12b] setup: mesh {mesh_s:.2f} s (the [4] mesh), space "
+    print(f"{tag} coupled RF ablation, {what} order 2 f32: {mesh.ne} "
+          f"elements, {fes.ndof} dofs; electrode 2, ground 3, body 1, 30 V")
+    print(f"{tag} setup: mesh {mesh_s:.2f} s ({mesh_of}), space "
           f"{sec['space']:.2f} s, RF solve {sec['rf_solve']:.2f} s ({rf.iterations} "
           f"CG iterations, converged {rf.converged}, true relative residual "
           f"{res:.3e}), operators {sec['operator']:.2f} s")
-    print(f"[12b] s/step {s_step:.6f} (CUDA events, 2 steps after 1 warm-up; stage "
+    print(f"{tag} s/step {s_step:.6f} (CUDA events, 2 steps after 1 warm-up; stage "
           f"CG {sim.op.cg_iterations}); coupled step: sigma(T) re-solve "
           f"{t1 - t0:.3f} s ({info.iterations} CG iterations, converged "
           f"{info.converged}) + step {t2 - t1:.3f} s")
-    print(f"[12b] T_max {T_max:.6f} C, max omega {om_max:.6e}, lesion volume "
+    print(f"{tag} T_max {T_max:.6f} C, max omega {om_max:.6e}, lesion volume "
           f"{sim.lesion_volume(om):.6e} m^3, P = total_power {P:.6f} W, "
           f"Phi^T A Phi {phi_a_phi:.6f} W, max_memory_allocated "
           f"{peak / 2**30:.3f} GiB")
-    print(f"[12b] launches: " + ", ".join(
-        f"{k} {launches[k]}" for k in RESTRICTION_KERNELS + ("fused_diffusion",))
+    print(f"{tag} launches: " + ", ".join(
+        f"{k} {launches[k]}" for k in kernels)
           + "; no MFEM reference exists for the coupled app, so none is held")
-    check(res <= 1e-5, "[12b] RF true relative residual <= 1e-5")
+    check(res <= 1e-5, f"{tag} RF true relative residual <= 1e-5")
     check(abs(P - phi_a_phi) <= 1e-4 * abs(phi_a_phi),
-          "[12b] P equals Phi^T A Phi within 1e-4")
+          f"{tag} P equals Phi^T A Phi within 1e-4")
     check(bool(torch.isfinite(T).all()) and T_max > sim.T_a,
-          "[12b] T finite and T_max > T_a")
+          f"{tag} T finite and T_max > T_a")
     check(all(bool(torch.isfinite(o).all()) and bool((o >= 0).all()) for o in oms),
-          "[12b] omega finite and >= 0")
+          f"{tag} omega finite and >= 0")
     check(all(bool((b >= a).all()) for a, b in zip(oms, oms[1:])),
-          "[12b] omega non-decreasing")
-    for name in RESTRICTION_KERNELS + ("fused_diffusion",):
-        check(launches[name] > 0, f"[12b] the coupled path launched {name}")
+          f"{tag} omega non-decreasing")
+    for name in kernels:
+        check(launches[name] > 0, f"{tag} the coupled path launched {name}")
     return launches
 
 
@@ -1637,7 +1801,8 @@ def main():
     check((hex_mesh.ne, fes.ndof) == (995_336, 8_092_657), "n=126 mesh size")
     phase_kernel_restriction(kc, fes)
     phase_small_end_to_end(dev)
-    hex_launches = phase_main(dev, hex_mesh, fes, (t1 - t0, t2 - t1))
+    hex_launches, *hex_run = phase_main(dev, hex_mesh, fes, (t1 - t0, t2 - t1))
+    bf16_numbers = phase_modes(dev, fes, hex_run)
     mesh_s = t1 - t0
     del fes
 
@@ -1646,8 +1811,11 @@ def main():
     phase_tet_restriction(kc, fes)
     ell_numbers = phase_ell_kernel(dev, fes)
     phase_tet_small(dev)
-    tet_launches = phase_tet_main(dev, mesh, fes, host_s)
-    del mesh, fes
+    tet_launches, ell_run = phase_tet_main(dev, mesh, fes, host_s)
+    pa_launches = phase_tet_pa(kc, dev, mesh, fes, host_s, ell_run)
+    del fes
+    phase_ablation_tet(dev, mesh, host_s)
+    del mesh
 
     phase_diffusion_kernel(dev)
     phase_lattice48(dev)
@@ -1658,7 +1826,8 @@ def main():
     del op
 
     probe_numbers = phase_probes(dev)
-    phase_ablation_small(dev)
+    phase_ablation_small(dev, make_cardiac_hex_mesh(
+        16, lengths=(L, L, L / 2), electrode_radius=0.004))
     phase_ablation_main(dev, hex_mesh, mesh_s)
     phase_poisson(kc, dev, hex_mesh)
     del hex_mesh
@@ -1678,6 +1847,14 @@ def main():
              **{f: kc.times[label][f]
                 for f in ("ms", "plain_ms", "bound_ms", "library_ms")})
         for k, label in rows.items()]
+    # the tet partial-assembly path's (956,820 × 10) restriction ([16])
+    tet_rows = {"gather_transpose": "tet L->E (nd,ne) float32",
+                "segment_sum": "tet E->L (nd,ne) float32"}
+    for entry in restriction:
+        if entry["name"] in tet_rows:
+            entry.update({f"tet_{f}": kc.times[tet_rows[entry["name"]]][f]
+                          for f in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                         tet_launches=pa_launches[entry["name"]])
     # the gather_sum entry's ms is the element-major L->E alone; before the
     # (nd, ne) directions had kernels of their own, this entry timed the hex
     # CG apply's round trip (mult_t + mult_transpose_t, both on gather_sum),
@@ -1694,7 +1871,8 @@ def main():
              plain_ms=ell_numbers["plain_ms"], bound_ms=ell_numbers["bound_ms"],
              bound_by="bytes", library_ms=ell_numbers["library_ms"]),
         dict(name="fused_diffusion", route="cuda", **KERNELS["fused_diffusion"],
-             launches=masked_launches["fused_diffusion"], **fd_numbers),
+             launches=masked_launches["fused_diffusion"], **fd_numbers,
+             **bf16_numbers),
     ] + [dict(name=k, route="cuda", **KERNELS[k], **probe_numbers[k],
               measures=PROBE_MEASURES) for k in PROBE_KERNELS]}))
     print(json.dumps({"ok": True, "device": {

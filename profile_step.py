@@ -2,20 +2,21 @@
 """Trace one implicit SDIRK33 step of the port's main paths on the GPU and
 print where the device time goes.
 
-    python3 profile_step.py [hex126] [masked126] [lattice48] [tet66] [poisson126]
-                            [chebyshev126]
+    python3 profile_step.py [hex126] [masked126] [lattice48] [tet66] [tetpa66]
+                            [poisson126] [chebyshev126]
 
 Each path is set up as ``chip_smoke.py`` sets it up (float32, order 2,
 quad_extra 0, θ form, rel_tol 1e-5): ``hex126`` the generic cardiac-hex
 path [4], ``masked126`` the masked cardiac-hex lattice [10], ``lattice48``
 bench.py's default 48³ lattice [9], ``tet66`` the assembled-ELL cardiac
-tet path [7].  After one warm-up step, the
+tet path [7], ``tetpa66`` the partial-assembly tet path [16] (the affine
+apply).  After one warm-up step, the
 profiler runs through one more step (its own warm-up, not recorded, so the
 tracer is steady before the traced step's first launch) and then traces
 one step, with a ``record_function`` range around each layer (the
-lane-major stage apply, the element-major residual and, inside it, the
-mass einsums, the restriction in both directions, the ELL stage plane
-formed once per solve).  Printed per path: the
+lane-major or affine stage apply, the residual (K + M_ω)T and, inside it
+on the element-major path, the mass einsums, the restriction in both
+directions, the ELL stage plane formed once per solve).  Printed per path: the
 step's wall time, the device time and call count of each range (ranges
 nest: the residual includes its restriction and mass parts), the device
 time and launches of each of the port's own kernels (launched through
@@ -66,7 +67,7 @@ import chip_smoke as cs
 
 LAYERS = {}      # range name -> patched (owner, attribute)
 STAGE = "stage apply"                 # one CG apply: restriction + lane-major
-RESIDUAL = "residual (element-major)"  # restriction, diffusion kernel, mass
+RESIDUAL = "residual (K + M_w)T"      # restriction, diffusion kernel, mass
 PLANE = "ELL stage plane"             # c0·w0 + c1·w1, once per solve
 
 
@@ -101,8 +102,9 @@ def instrument():
         return ranged
 
     BioheatOperator._stage_apply = staged
-    _wrap(BioheatOperator, "_apply", RESIDUAL)
+    _wrap(BioheatOperator, "_A_apply", RESIDUAL)
     _wrap(lanemajor, "mass_diffusion_apply", "lane-major apply")
+    _wrap(lanemajor, "affine_mass_diffusion_apply", "affine apply")
     _wrap(mass, "apply", "mass apply (einsum)")
     _wrap(MultiELLPair, "combined", PLANE)
     for cls in (StructuredRestriction, ElementRestriction):
@@ -156,6 +158,12 @@ def _busy_us(prof):
     return busy + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
+@functools.lru_cache(maxsize=1)
+def _tet_space(n):
+    """``chip_smoke.tet_space``, built once for ``tet66`` and ``tetpa66``."""
+    return cs.tet_space(n)
+
+
 def build(path, dev):
     from cardiac_ablation_ecm2_tpu_torch.fem.cartesian import CartesianFESpace
     from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
@@ -172,10 +180,11 @@ def build(path, dev):
         _, fes, kw, _, _ = cs.masked_space(126)
         return BioheatOperator(fes, q_met=cs.source, dtype="float32",
                                device=dev, **dict(cs.SETTINGS, **kw))
-    if path == "tet66":
-        _, fes, _ = cs.tet_space(66)
+    if path in ("tet66", "tetpa66"):
+        _, fes, _ = _tet_space(66)
+        ell = dict(assembled_apply="ell") if path == "tet66" else {}
         return BioheatOperator(fes, q_met=cs.source, dtype="float32",
-                               device=dev, assembled_apply="ell", **cs.SETTINGS)
+                               device=dev, **ell, **cs.SETTINGS)
     if path == "lattice48":
         fes = CartesianFESpace(make_cartesian_3d(48, 48, 48, cs.L, cs.L, cs.L),
                                2, (48, 48, 48), (cs.L,) * 3)

@@ -2,9 +2,10 @@
 transposing gather, the segment-sum, the SELL SpMV of one weight plane
 and the probe gathers bitwise equal to their plain PyTorch versions,
 FULL assembly repeatable bit for bit, the fused diffusion apply within
-rounding of its plain version at every shape it takes (and raising on one
-it does not), and the restriction,
-the tet ELL operator, the masked cardiac-hex lattice, the coupled
+rounding of its plain version at every shape it takes, with float32 or
+bfloat16 qdata (and raising on one it does not), and the restriction,
+the tet ELL operator, the tet partial-assembly step (merged CG, explicit
+RK4), the masked cardiac-hex lattice, the coupled
 ablation app, Poisson with each preconditioner, ex16 heat and ``entry()``
 on CUDA equal to the CPU, and the LOR operator at the [4] mesh's size
 equal to a plain composition.
@@ -73,7 +74,8 @@ def test_kernel_bitwise_equals_plain(cuda, dtype, J):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("ne,nd", [(1_037, 27), (4_099, 10), (300, 64), (130, 125)])
+@pytest.mark.parametrize("ne,nd", [(1_037, 27), (4_099, 10), (95_683, 10),
+                                   (300, 64), (130, 125)])
 def test_gather_transpose_bitwise_equals_plain(cuda, dtype, ne, nd):
     """Partial last tiles, the tet and hex widths, and widths whose tile
     is halved to fit 48 KB of shared memory (64 and 125 in float64)."""
@@ -243,6 +245,34 @@ def test_fused_diffusion_matches_plain(cuda, n1, nq1, dtype, tol):
         assert err <= tol, err
 
 
+@pytest.mark.parametrize("n1,nq1", fd.SHAPES)
+def test_fused_diffusion_bf16_qdata_matches_plain(cuda, n1, nq1):
+    """The bfloat16-qdata instantiation (float32 e and y) against the plain
+    version fed the same bfloat16 values, within [8]'s float32 tolerance,
+    full and collapsed qdata; float64 e with bfloat16 qdata raises."""
+    rng = np.random.default_rng(20 * n1 + nq1)
+    db = device_basis(make_dof_to_quad(Geometry.CUBE, n1 - 1, nq1),
+                      torch.float32, cuda)
+    ne = 1_009
+    e = torch.as_tensor(rng.standard_normal((ne, n1 ** 3)), dtype=torch.float32,
+                        device=cuda)
+    q = torch.as_tensor(rng.standard_normal((6, ne, nq1 ** 3)),
+                        dtype=torch.bfloat16, device=cuda)
+    for qd in (q, q[:, :1].contiguous()):
+        before = fd.diffusion_apply.launches
+        y = fd.diffusion_apply(db, qd, e)
+        torch.cuda.synchronize()
+        assert fd.diffusion_apply.launches == before + 1
+        ref = fd.diffusion_apply_plain(db, qd, e)
+        assert ref.dtype == torch.float32
+        err = float((y - ref).abs().max() / ref.abs().max())
+        assert err <= 1e-5, err
+    db64 = device_basis(make_dof_to_quad(Geometry.CUBE, n1 - 1, nq1),
+                        torch.float64, cuda)
+    with pytest.raises(ValueError):
+        fd.diffusion_apply(db64, q, e.double())
+
+
 def test_fused_diffusion_rejects_unsupported_shape(cuda):
     db = device_basis(make_dof_to_quad(Geometry.CUBE, 5, 6), torch.float32, cuda)
     e = torch.zeros(7, 216, device=cuda)
@@ -251,6 +281,38 @@ def test_fused_diffusion_rejects_unsupported_shape(cuda):
     with pytest.raises(ValueError):
         fd.diffusion_apply(db, q, e)
     assert fd.diffusion_apply.launches == before
+
+
+@pytest.mark.parametrize("affine", ["auto", "off"])
+def test_tet_pa_operator_cuda_equals_cpu(cuda, affine):
+    """The tet partial-assembly step (affine, and the per-point lane-major
+    apply with the affine collapse off) at n=8 in float64: three SDIRK33
+    steps with merged CG, and one explicit RK4 step, on the card within
+    1e-10 of the CPU with equal CG counts."""
+    L = 0.04
+    old = config.quad_extra, config.affine_collapse
+    configure(quad_extra=0, affine_collapse=affine)
+    try:
+        fes = FESpace(make_cardiac_tet_mesh(8, lengths=(L, L, L / 2),
+                                            electrode_radius=0.004), 2)
+        kw = dict(rho_c=3.6e6, k=0.54, w_cb=2e4, ess_bdr=[1, 2, 3], rel_tol=1e-5,
+                  max_iter=300, theta_form=True, q_met=1e6, dtype="float64",
+                  cg_variant="merged")
+        ops = [bioheat.BioheatOperator(fes, device=d, **kw) for d in (cuda, "cpu")]
+    finally:
+        configure(quad_extra=old[0], affine_collapse=old[1])
+    assert (ops[0]._aff is not None) == (affine == "auto")
+    Ts, Ks = [], []
+    for op in ops:
+        T = torch.zeros(fes.ndof, dtype=torch.float64, device=op.device)
+        t = 0.0
+        for _ in range(3):
+            T, t = ode.select("sdirk33").step(op, T, t, 0.25)
+        Ts.append(T.cpu())
+        Ks.append(ode.select("rk4").step(op, T, t, 0.01)[0].cpu())
+    assert ops[0].cg_iterations == ops[1].cg_iterations
+    for a, b in (Ts, Ks):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-10
 
 
 def test_masked_lattice_cuda_equals_cpu(cuda):

@@ -2,8 +2,9 @@
 tet mesh: host copies equal exactly (mesh, rules, bases, dof numbering,
 essential dofs, node coordinates); device setup in float64 on the CPU at
 rtol 1e-12 (geometric factors, mass and diffusion qdata, element
-diagonals).  Also: every port entry point that allocates on a device runs
-on the card unless told otherwise, so with no device and no GPU it raises."""
+diagonals, the partial-assembly operator's applies).  Also: every port
+entry point that allocates on a device runs on the card unless told
+otherwise, so with no device and no GPU it raises."""
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from cardiac_ablation_ecm2_tpu.fem.fespace import FESpace as JFESpace
 from cardiac_ablation_ecm2_tpu.fem.fespace import element_node_coords as jenc
 from cardiac_ablation_ecm2_tpu.fem.geometry import Geometry as JGeometry
 from cardiac_ablation_ecm2_tpu.mesh.cardiac import make_cardiac_tet_mesh as jmake
+from cardiac_ablation_ecm2_tpu.models import bioheat as jbio
 from cardiac_ablation_ecm2_tpu.ops import diffusion as jdiff
 from cardiac_ablation_ecm2_tpu.ops import mass as jmass
 from cardiac_ablation_ecm2_tpu_torch.fem import basis as tbasis
@@ -138,10 +140,21 @@ def test_tet_dense_applies_and_diagonals():
           jqi.eval_grad_t(jdb, jqi.eval_grad(jdb, u)))
 
 
-def test_tet_operator_without_ell_is_not_ported():
-    fes = FESpace(make_cardiac_tet_mesh(4, **KW), 2)
-    with pytest.raises(NotImplementedError):
-        BioheatOperator(fes, dtype="float64", device="cpu")
+def test_tet_operator_without_ell_matches_jax():
+    """The partial-assembly tet operator (no ``assembled_apply``): the
+    affine path in both packages, its stage apply, residual and M_ρc apply
+    on one vector to 1e-12 (``tests/test_torch_tet_pa.py`` runs its steps)."""
+    params = dict(rho_c=3.6e6, k=0.54, w_cb=2e4, ess_bdr=[1, 2, 3],
+                  q_met=1e6, dtype="float64")
+    jop = jbio.BioheatOperator(fes=JFESpace(jmake(4, **KW), 2), **params)
+    top = BioheatOperator(FESpace(make_cardiac_tet_mesh(4, **KW), 2),
+                          device="cpu", **params)
+    assert top._ell is None and top._aff is not None and jop._aff is not None
+    v = np.random.default_rng(2).standard_normal(jop.fes.ndof)
+    tv = torch.as_tensor(v)
+    close(top._stage_apply(0.1)(tv), jop._implicit_lhs_apply(0.1, v))
+    close(top.residual(tv), jop.residual(v))
+    close(top._Mrc_apply(tv), jop._Mrc_apply(v))
 
 
 def _no_card():
@@ -160,6 +173,10 @@ _ENTRY_POINTS = {
     "compute_geometric_factors": lambda fes: tgfm.compute_geometric_factors(
         element_node_coords(fes.mesh, 2), fes.d2q, "float64"),
     "BilinearForm": lambda fes: BilinearForm(fes),
+    "BilinearForm.assemble": lambda fes: BilinearForm(fes)
+    .add_domain_integrator("diffusion", 0.5).assemble("float64"),
+    "BioheatOperator (partial assembly)": lambda fes: BioheatOperator(
+        fes, dtype="float64"),
     "MultiELLPair.from_csr_pair": lambda fes: MultiELLPair.from_csr_pair(
         BilinearForm(fes, "cpu").add_domain_integrator("mass").assemble_matrix(),
         BilinearForm(fes, "cpu").add_domain_integrator("mass").assemble_matrix()),
