@@ -157,6 +157,11 @@ class CartesianFESpace:
         return self.ndof_scalar
 
     @property
+    def vdim(self) -> int:
+        """Scalar: the structured restriction has no component axes."""
+        return 1
+
+    @property
     def nd_elem(self) -> int:
         return self.gather_map.shape[1]
 

@@ -9,6 +9,8 @@
   (cast to the working dtype and moved to the factors' device); a grid
   function becomes one through ``gridfunction.values_at_quad``
 * piecewise constant by element attribute → :func:`attribute_coefficient`
+
+Vector coefficients (velocities, loads) go through :func:`eval_vector_coeff`.
 """
 
 from __future__ import annotations
@@ -30,6 +32,18 @@ def eval_coeff(coeff, gf: GeometricFactors, dtype=None):
     arr = torch.as_tensor(coeff, **kw)
     if arr.ndim == 0:
         return arr.expand(gf.det.shape)
+    return arr
+
+
+def eval_vector_coeff(coeff, gf: GeometricFactors, dtype=None) -> torch.Tensor:
+    """Evaluate a vector coefficient to an (ne, nq, k) Q-vector: a callable
+    of x, a constant vector (k,), or an (ne, nq, k) array."""
+    kw = dict(dtype=real_t(dtype), device=gf.det.device)
+    if callable(coeff):
+        return torch.as_tensor(coeff(gf.x), **kw)
+    arr = torch.as_tensor(coeff, **kw)
+    if arr.ndim == 1:
+        return arr[None, None, :].expand(*gf.det.shape, arr.shape[0])
     return arr
 
 

@@ -1,7 +1,7 @@
 """H1 finite element space: global dof enumeration on a hex or tet mesh
 (numpy copy of ``FESpace``, ``element_node_coords`` and ``essential_dofs``
 from ``cardiac_ablation_ecm2_tpu/fem/fespace.py``, tensor and simplex
-geometries).
+geometries, scalar or with ``vdim`` components ordered byNODES).
 
 Every local node of every element gets an integer entity key that is
 identical for coincident nodes of neighbouring elements; hash-uniquing the
@@ -204,10 +204,14 @@ def _bdr_cell_to_face_keys(bgeom: Geometry, p: int, bverts: np.ndarray,
 
 @dataclasses.dataclass(eq=False)
 class FESpace:
-    """Scalar H1 nodal space of order p on a single-geometry mesh."""
+    """H1 nodal space of order p on a single-geometry mesh.  ``vdim``
+    components are ordered byNODES (component-major): global dof =
+    scalar dof + ndof_scalar·c.  The gather maps and ``essential_dofs``
+    stay scalar; a vector caller offsets them by c·ndof_scalar."""
 
     mesh: Mesh
     order: int
+    vdim: int = 1
 
     # filled by __post_init__
     ndof_scalar: int = dataclasses.field(init=False)
@@ -245,7 +249,7 @@ class FESpace:
 
     @property
     def ndof(self) -> int:
-        return self.ndof_scalar
+        return self.ndof_scalar * self.vdim
 
     @functools.cached_property
     def d2q(self) -> DofToQuad:

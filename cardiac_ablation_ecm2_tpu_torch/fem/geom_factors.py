@@ -1,9 +1,11 @@
 """Geometric factors at quadrature points (counterpart of
-``cardiac_ablation_ecm2_tpu/fem/geom_factors.py``, 3D).
+``cardiac_ablation_ecm2_tpu/fem/geom_factors.py``): volume elements and
+the boundary faces of 3D meshes.
 
 The geometry E-vector (element node coordinates) goes through
-``quadinterp.eval_grad``; determinant and adjugate are closed-form 3×3
-formulas.  Jacobian convention: ``J[e, q, s, d] = ∂x_s/∂ξ_d``.  The same
+``quadinterp.eval_grad``; determinant and adjugate are closed-form 2×2 and
+3×3 formulas, and an embedded face Jacobian (3×2) gets the surface
+measure sqrt(det(JᵀJ)).  Jacobian convention: ``J[e, q, s, d] = ∂x_s/∂ξ_d``.  The same
 code serves tensor (hex) and dense (tet) bases.  Straight-sided simplices
 also get their constant per-element Jacobians and affine factors on the
 host in float64 (:func:`affine_element_jacobians`,
@@ -29,7 +31,7 @@ class GeometricFactors:
 
     x: torch.Tensor       # (ne, nq, sdim) physical coordinates
     jac: torch.Tensor     # (ne, nq, sdim, dim)
-    det: torch.Tensor     # (ne, nq) signed det J
+    det: torch.Tensor     # (ne, nq) signed det J (a face's surface measure)
     w: torch.Tensor       # (nq,) reference quadrature weights
 
     @property
@@ -38,8 +40,11 @@ class GeometricFactors:
         return self.det * self.w[None, :]
 
 
-def determinant(J: torch.Tensor) -> torch.Tensor:
-    """det of square 3×3 Jacobians (..., 3, 3)."""
+def _det2(J):
+    return J[..., 0, 0] * J[..., 1, 1] - J[..., 0, 1] * J[..., 1, 0]
+
+
+def _det3(J):
     return (
         J[..., 0, 0] * (J[..., 1, 1] * J[..., 2, 2] - J[..., 1, 2] * J[..., 2, 1])
         - J[..., 0, 1] * (J[..., 1, 0] * J[..., 2, 2] - J[..., 1, 2] * J[..., 2, 0])
@@ -47,8 +52,30 @@ def determinant(J: torch.Tensor) -> torch.Tensor:
     )
 
 
+def determinant(J: torch.Tensor) -> torch.Tensor:
+    """det of square Jacobians (..., d, d); for embedded ones (sdim > dim,
+    boundary faces) the surface measure sqrt(det(JᵀJ))."""
+    s, d = J.shape[-2], J.shape[-1]
+    if s == d:
+        return J[..., 0, 0] if d == 1 else (_det2(J) if d == 2 else _det3(J))
+    JtJ = torch.einsum("...sd,...se->...de", J, J)
+    if d == 1:
+        return torch.sqrt(JtJ[..., 0, 0])
+    return torch.sqrt(_det2(JtJ) if d == 2 else _det3(JtJ))
+
+
 def adjugate(J: torch.Tensor) -> torch.Tensor:
-    """adj(J) of (..., 3, 3), with J @ adj(J) = det(J) I."""
+    """adj(J) by the reference dimension d = J.shape[-1], with
+    J @ adj(J) = det(J) I for square J; on an embedded (sdim × 2) face
+    Jacobian it is the adjugate of the leading 2×2 block, as in the JAX
+    package (no boundary integrator reads it)."""
+    d = J.shape[-1]
+    if d == 1:
+        return torch.ones_like(J)
+    if d == 2:
+        a, b, c, e = J[..., 0, 0], J[..., 0, 1], J[..., 1, 0], J[..., 1, 1]
+        return torch.stack([torch.stack([e, -b], dim=-1),
+                            torch.stack([-c, a], dim=-1)], dim=-2)
     rows = [
         [J[..., 1, 1] * J[..., 2, 2] - J[..., 1, 2] * J[..., 2, 1],
          J[..., 0, 2] * J[..., 2, 1] - J[..., 0, 1] * J[..., 2, 2],

@@ -7,6 +7,9 @@ Both directions run on the ops of ``ops/block_gather.py``:
   plane for the element-major layout, ``gather_transpose`` for the
   transposed (nd, ne) layout the lane-major applies consume
   (``ops/lanemajor.py``).
+* A byNODES vector's components are contiguous (ndof,) slices: the vector
+  E-vector (ne, nd, vdim) takes one gather and one segment-sum per
+  component (``mult_vec``, ``mult_transpose_vec``).
 * E→L is the sorted segment-sum of the JAX package's base restriction:
   the E-slots of every dof in ascending slot order (a stable counting sort
   by destination dof), summed in that order by ``segment_sum``, one slot
@@ -90,3 +93,16 @@ class ElementRestriction:
     def mult_transpose_t(self, u_eT: torch.Tensor) -> torch.Tensor:
         """E→L sum from the transposed layout: (nd, ne) → (ndof,)."""
         return segment_sum(u_eT.reshape(-1), self.slotsT, self.offsets)
+
+    def mult_vec(self, u: torch.Tensor, vdim: int) -> torch.Tensor:
+        """L→E of a byNODES vector: (vdim·ndof,) → (ne, nd, vdim), one
+        gather per component (each a contiguous (ndof,) slice)."""
+        us = u.view(vdim, self.ndof)
+        return torch.stack([self.mult(us[c]) for c in range(vdim)], dim=-1)
+
+    def mult_transpose_vec(self, u_e: torch.Tensor) -> torch.Tensor:
+        """E→L of a vector E-vector: (ne, nd, vdim) → (vdim·ndof,) byNODES,
+        one segment-sum per component."""
+        comps = u_e.permute(2, 0, 1).contiguous()
+        return torch.cat([self.mult_transpose(comps[c])
+                          for c in range(comps.shape[0])])

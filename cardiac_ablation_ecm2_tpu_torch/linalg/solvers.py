@@ -1,18 +1,19 @@
-"""Matrix-free preconditioned conjugate gradients (counterpart of ``cg``,
-``cg_merged``, ``power_method``, ``SolveInfo`` and ``default_dot`` in
+"""Matrix-free Krylov solvers (counterpart of ``cg``, ``cg_merged``,
+``gmres``, ``power_method``, ``SolveInfo`` and ``default_dot`` in
 ``cardiac_ablation_ecm2_tpu/linalg/solvers.py``).
 
-Operators and preconditioners are callables ``x -> Ax``.  The stopping rule
-is MFEM's ``CGSolver::Mult``: stop when (r, z) ≤ max(rel_tol²·(r0, z0),
-abs_tol²).  PyTorch runs eagerly, so the loop reads the convergence flag on
-the host once per iteration; the iterates equal those of the JAX
-``lax.while_loop``.
+Operators and preconditioners are callables ``x -> Ax``.  CG's stopping
+rule is MFEM's ``CGSolver::Mult``: stop when (r, z) ≤ max(rel_tol²·(r0, z0),
+abs_tol²).  PyTorch runs eagerly, so the loops read the convergence flag on
+the host once per iteration (none with ``check_convergence=False``); the
+iterates equal those of the JAX ``lax.while_loop``.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..utils.config import config, real_t, resolve_device
@@ -42,8 +43,11 @@ def cg(
     abs_tol: float = 0.0,
     max_iter: int = 500,
     dot: Callable = default_dot,
+    check_convergence: bool = True,
 ):
-    """Preconditioned CG (CGSolver::Mult).  Returns (x, SolveInfo)."""
+    """Preconditioned CG (CGSolver::Mult).  Returns (x, SolveInfo).
+    ``check_convergence=False`` runs exactly ``max_iter`` iterations with
+    no host read inside the loop: the fixed-work benchmarking mode."""
     x = torch.zeros_like(b) if x0 is None else x0
     prec = M if M is not None else (lambda v: v)
 
@@ -60,7 +64,7 @@ def cg(
         r = r - alpha * Ad
         z = prec(r)
         betanom = dot(r, z)
-        done = bool(betanom <= target)
+        done = check_convergence and bool(betanom <= target)
         d = z + (betanom / nom) * d
         nom = betanom
         k += 1
@@ -120,6 +124,94 @@ def cg_merged(
     info = SolveInfo(iterations=k, final_norm=float(gamma.abs().sqrt()),
                      converged=bool(gamma <= target))
     return x, info
+
+
+def gmres(
+    A: Callable,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    M: Optional[Callable] = None,
+    rel_tol: float = 1e-8,
+    abs_tol: float = 0.0,
+    max_iter: int = 200,
+    restart: int = 50,
+    dot: Callable = default_dot,
+):
+    """Restarted left-preconditioned GMRES (GMRESSolver) with modified
+    Gram–Schmidt and Givens rotations, for nonsymmetric operators.
+
+    The JAX package's iteration: the residual target is
+    max(rel_tol·‖M(b − A x0)‖, abs_tol); a cycle of at most ``restart``
+    Arnoldi steps stops when the rotated residual |g_{j+1}| reaches it; at
+    most ⌈max_iter / restart⌉ cycles; ``iterations`` counts the Arnoldi
+    steps taken.  The Krylov basis and the orthogonalisation stay on the
+    vectors' device; each Arnoldi step reads its Hessenberg column (j + 2
+    numbers) on the host once, where the rotations and the triangular
+    solve run in the vectors' dtype (numpy scalars of that type).
+    Returns (x, SolveInfo)."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    prec = M if M is not None else (lambda v: v)
+    m = restart
+    npt = np.float64 if b.dtype == torch.float64 else np.float32
+
+    def residual(x):
+        r = prec(b - A(x))
+        return r, npt(float(torch.sqrt(dot(r, r))))
+
+    r, beta0 = residual(x)
+    target = max(npt(rel_tol) * beta0, npt(abs_tol))
+    res, its, cycles = beta0, 0, 0
+    done = bool(beta0 <= target)
+    tiny = npt(1e-300)
+    while cycles < (max_iter + m - 1) // m and not done:
+        if cycles > 0:
+            r, res = residual(x)
+        beta = res
+        V = [r / torch.clamp_min(torch.sqrt(dot(r, r)), 1e-300)]
+        H = np.zeros((m + 1, m), npt)
+        cs = np.zeros(m, npt)
+        sn = np.zeros(m, npt)
+        g = np.zeros(m + 1, npt)
+        g[0] = beta
+        k = 0
+        cdone = bool(beta <= target)
+        while k < m and not cdone:
+            j = k
+            w = prec(A(V[j]))
+            h = []
+            for i in range(j + 1):          # modified Gram–Schmidt
+                hij = dot(w, V[i])
+                w = w - hij * V[i]
+                h.append(hij)
+            hj1 = torch.sqrt(dot(w, w))
+            V.append(w / torch.clamp_min(hj1, 1e-300))
+            col = torch.stack(h + [hj1]).cpu().numpy()   # the one host read
+            H[:j + 2, j] = col
+            for i in range(j):              # earlier rotations
+                t = cs[i] * H[i, j] + sn[i] * H[i + 1, j]
+                H[i + 1, j] = -sn[i] * H[i, j] + cs[i] * H[i + 1, j]
+                H[i, j] = t
+            denom = np.sqrt(H[j, j] ** 2 + H[j + 1, j] ** 2)
+            c = H[j, j] / max(denom, tiny)
+            s = H[j + 1, j] / max(denom, tiny)
+            cs[j], sn[j] = c, s
+            H[j, j], H[j + 1, j] = denom, 0
+            g[j + 1] = -s * g[j]
+            g[j] = c * g[j]
+            res = abs(g[j + 1])
+            k += 1
+            cdone = bool(res <= target)
+        y = np.zeros(m, npt)
+        for j in range(k - 1, -1, -1):      # back-substitution
+            num = g[j] - H[j] @ y
+            y[j] = num / H[j, j] if H[j, j] != 0 else 0
+        if k:
+            yt = torch.as_tensor(y[:k], device=b.device)
+            x = x + torch.stack(V[:k], dim=1) @ yt
+        its += k
+        cycles += 1
+        done = bool(res <= target)
+    return x, SolveInfo(iterations=its, final_norm=float(res), converged=done)
 
 
 def power_method(

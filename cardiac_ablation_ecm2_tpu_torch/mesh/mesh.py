@@ -1,5 +1,6 @@
-"""Unstructured mesh as element-batched index arrays (numpy copy of ``Mesh``
-and ``make_cartesian_3d`` from ``cardiac_ablation_ecm2_tpu/mesh/mesh.py``).
+"""Unstructured mesh as element-batched index arrays (numpy copy of ``Mesh``,
+``make_cartesian_3d`` and ``make_cartesian_3d_tet`` from
+``cardiac_ablation_ecm2_tpu/mesh/mesh.py``).
 
 A mesh is a plain bag of numpy arrays, one geometry type per mesh, built on
 the host; only dof-mapped arrays derived from it go to a device.  The
@@ -121,4 +122,45 @@ def make_cartesian_3d(
         attributes=np.ones(len(elems), dtype=np.int64),
         boundary=np.array(bdr, dtype=np.int64),
         bdr_attributes=np.array(battr, dtype=np.int64),
+    )
+
+
+#: the six tets of a hex around its (v0, v6) diagonal
+_TET_PATHS = ((0, 1, 2, 6), (0, 2, 3, 6), (0, 3, 7, 6),
+              (0, 7, 4, 6), (0, 4, 5, 6), (0, 5, 1, 6))
+
+
+def make_cartesian_3d_tet(
+    nx: int, ny: int, nz: int, sx: float = 1.0, sy: float = 1.0, sz: float = 1.0
+) -> Mesh:
+    """Tetrahedral grid: each hex of :func:`make_cartesian_3d` split into six
+    tets around its (v0, v6) diagonal; each boundary quad becomes the two
+    triangles along the diagonal its tet cut.  The face-membership test
+    runs on sorted face rows encoded as int64 keys (``np.isin``), so a
+    million tets take seconds; the arrays equal the JAX package's."""
+    h = make_cartesian_3d(nx, ny, nz, sx, sy, sz)
+    e = h.elements
+    tets = np.concatenate([e[:, list(p)] for p in _TET_PATHS], axis=0)
+    nv = np.int64(h.nv)
+    if float(h.nv) ** 3 >= 2.0 ** 63:
+        raise ValueError(f"{h.nv} vertices overflow the int64 face keys")
+
+    def keys(rows):
+        r = np.sort(rows, axis=1)
+        return (r[:, 0] * nv + r[:, 1]) * nv + r[:, 2]
+
+    faces = [(1, 2, 3), (0, 3, 2), (0, 1, 3), (0, 2, 1)]
+    tet_keys = np.concatenate([keys(tets[:, list(f)]) for f in faces])
+    q = h.boundary
+    cut02 = np.isin(keys(q[:, [0, 1, 2]]), tet_keys)
+    first = np.where(cut02[:, None], q[:, [0, 1, 2]], q[:, [0, 1, 3]])
+    second = np.where(cut02[:, None], q[:, [0, 2, 3]], q[:, [1, 2, 3]])
+    btris = np.stack([first, second], axis=1).reshape(-1, 3)
+    return Mesh(
+        geom=Geometry.TETRAHEDRON,
+        vertices=h.vertices,
+        elements=tets,
+        attributes=np.tile(h.attributes, 6),
+        boundary=btris,
+        bdr_attributes=np.repeat(h.bdr_attributes, 2),
     )

@@ -1,13 +1,14 @@
 """Diffusion integrator, partial assembly (counterpart of
-``cardiac_ablation_ecm2_tpu/ops/diffusion.py``, 3D, scalar coefficients).
+``cardiac_ablation_ecm2_tpu/ops/diffusion.py``, 3D).
 
-Per quadrature point ``D = (w/detJ) · adj(J) · c · adj(J)ᵀ``; the apply
-``Gᵀ (D ∘ (G u))`` on a tensor (hex) basis is
-``ops/fused_diffusion.diffusion_apply`` (the hand-written kernel on the
-card, the einsum chain on the CPU); on a dense (simplex) basis it is the
-einsum chain on any device, as the JAX package's ``apply`` is plain XLA.
-Packed symmetric qdata is (6, ne, nq) in the order
-[D00, D11, D22, D01, D02, D12].
+Per quadrature point ``D = (w/detJ) · adj(J) · C · adj(J)ᵀ``.  A scalar
+coefficient gives packed symmetric qdata (6, ne, nq) in the order
+[D00, D11, D22, D01, D02, D12], whose apply ``Gᵀ (D ∘ (G u))`` on a tensor
+(hex) basis is ``ops/fused_diffusion.diffusion_apply`` (the hand-written
+kernel on the card, the einsum chain on the CPU) and on a dense (simplex)
+basis the einsum chain on any device, as the JAX package's ``apply`` is
+plain XLA.  A matrix coefficient (ne, nq, 3, 3) gives full (ne, nq, 3, 3)
+qdata, applied by the einsum chain on any device, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..fem.geom_factors import GeometricFactors, adjugate
-from ..fem.quadinterp import DeviceBasis, contract_q_to_e
+from ..fem.quadinterp import DeviceBasis, contract_q_to_e, eval_grad, eval_grad_t
 from .fused_diffusion import diffusion_apply, diffusion_apply_plain
 
 #: packed index of each (a, b) component
@@ -24,12 +25,16 @@ _PIDX = {(0, 0): 0, (1, 1): 1, (2, 2): 2, (0, 1): 3, (1, 0): 3,
 
 
 def setup(gf: GeometricFactors, coeff_q=None) -> torch.Tensor:
-    """Full symmetric qdata (ne, nq, 3, 3); ``coeff_q`` None or (ne, nq)."""
+    """Full qdata (ne, nq, 3, 3); ``coeff_q`` None, (ne, nq) scalar or
+    (ne, nq, 3, 3) matrix conductivity."""
     A = adjugate(gf.jac)
     w_over_det = gf.w[None, :] / gf.det
-    D = torch.einsum("eqab,eqcb->eqac", A, A)
-    if coeff_q is not None:
-        D = D * coeff_q[..., None, None]
+    if coeff_q is not None and coeff_q.dim() == 4:
+        D = torch.einsum("eqab,eqbc,eqdc->eqad", A, coeff_q, A)
+    else:
+        D = torch.einsum("eqab,eqcb->eqac", A, A)
+        if coeff_q is not None:
+            D = D * coeff_q[..., None, None]
     return D * w_over_det[..., None, None]
 
 
@@ -61,25 +66,42 @@ def pack_sym(D: torch.Tensor) -> torch.Tensor:
     )
 
 
+def is_packed(qdata: torch.Tensor) -> bool:
+    return qdata.dim() == 3 and qdata.shape[0] == 6
+
+
 def apply(db: DeviceBasis, qdata: torch.Tensor, u_e: torch.Tensor) -> torch.Tensor:
-    """(ne, nd) → (ne, nd): Gᵀ (D ∘ (G u)) from packed qdata (6, ne|1, nq):
-    the fused kernel on a tensor basis, the einsum chain on a dense one."""
+    """(ne, nd) → (ne, nd): Gᵀ (D ∘ (G u)).  Packed qdata (6, ne|1, nq):
+    the fused kernel on a tensor basis, the einsum chain on a dense one;
+    full (ne, nq, 3, 3) qdata: the einsum chain."""
+    if not is_packed(qdata):
+        return eval_grad_t(db, torch.einsum("eqab,eqb->eqa", qdata,
+                                            eval_grad(db, u_e)))
     if db.tensor:
         return diffusion_apply(db, qdata, u_e)
     return diffusion_apply_plain(db, qdata, u_e)
 
 
 def diagonal(db: DeviceBasis, qdata: torch.Tensor) -> torch.Tensor:
-    """diag(Gᵀ D G) per element → (ne, nd) from packed qdata.  Dense basis:
+    """diag(Gᵀ D G) per element → (ne, nd) from packed or full qdata.  Dense basis:
     Σ_ab G_a ∘ D_ab ∘ G_b per component.  Tensor basis: component (a, b)
     contracts with (G∘G) along the axis equal to a and b, (B∘G) along an
     axis equal to one of them, (B∘B) otherwise."""
+    if not is_packed(qdata):
+        if not db.tensor:
+            return torch.einsum("qna,eqab,qnb->en", db.G, qdata, db.G)
+
+        def comp(a, b):
+            return qdata[:, :, a, b]
+    else:
+        def comp(a, b):
+            return qdata[_PIDX[(a, b)]]
     if not db.tensor:
         out = None
         for a in range(3):
             for b in range(3):
                 t = torch.einsum("qn,eq,qn->en", db.G[:, :, a],
-                                 qdata[_PIDX[(a, b)]], db.G[:, :, b])
+                                 comp(a, b), db.G[:, :, b])
                 out = t if out is None else out + t
         return out
     B, G = db.B1, db.G1
@@ -95,6 +117,6 @@ def diagonal(db: DeviceBasis, qdata: torch.Tensor) -> torch.Tensor:
                     facs.append(BG)
                 else:
                     facs.append(BB)
-            term = contract_q_to_e(tuple(facs), qdata[_PIDX[(a, b)]])
+            term = contract_q_to_e(tuple(facs), comp(a, b))
             out = term if out is None else out + term
     return out

@@ -1,23 +1,33 @@
-"""Two sparse matrices on one pattern, applied as ``y = (c0·M0 + c1·M1) x``
-(counterpart of ``MultiELLPair`` in ``cardiac_ablation_ecm2_tpu/ops/ell.py``).
+"""Assembled sparse operators in sliced ELL (counterpart of ``ELLOperator``,
+``MultiELLOperator`` and ``MultiELLPair`` in
+``cardiac_ablation_ecm2_tpu/ops/ell.py``).
 
-The bioheat stage operator (M_ρc + γ(K + M_ω)) on tets is exactly this
-shape: both matrices share the FE connectivity pattern, γ changes per solve.
-The contract is the JAX package's: natural row and column numbering in and
-out, a sentinel column reads 0, nothing is scattered.  The layout is the
-port's own, SELL-32-σ, a sliced ELL that fits a GPU warp:
+:class:`ELLOperator` and :class:`MultiELLOperator` apply one matrix (square
+or rectangular); :class:`MultiELLPair` holds two matrices on one pattern,
+applied as ``y = (c0·M0 + c1·M1) x``: the bioheat stage operator
+(M_ρc + γ(K + M_ω)) on tets is exactly this shape, both matrices sharing
+the FE connectivity pattern, γ changing per solve.  The contract is the JAX
+package's: natural row and column numbering in and out, a sentinel column
+reads 0, nothing is scattered.  The layout is the port's own, SELL-32-σ, a
+sliced ELL that fits a GPU warp:
 
 * rows are sorted by their nnz within windows of ``SIGMA`` rows (natural
   order among equal widths, so the x gathers stay local) and cut into
   slices of 32 rows; a slice is as wide as its widest row, J_s;
-* slice s holds int32 column planes (J_s, 32) (sentinel n in the padding)
-  and the two aligned weight planes, plane-major from ``slice_ptr[s]``, and
+* slice s holds int32 column planes (J_s, 32) (sentinel m, the number of
+  columns, in the padding) and the aligned weight planes, plane-major from
+  ``slice_ptr[s]``, and
   ``row_ids`` the natural row of every sorted row, so the kernel writes
   every output row once and nothing unpermutes.
 
 :meth:`MultiELLPair.combined` forms the weight plane c0·w0 + c1·w1 once
 (a solve's stage operator, or one ``mult_combined`` call);
-:class:`CombinedELL` applies it, streaming one weight plane per entry.
+:class:`CombinedELL` applies it, streaming one weight plane per entry, as
+an :class:`ELLOperator` streams its own.  Since SELL takes rows of any
+width with no global padding, the single-matrix operators need none of the
+JAX package's width buckets, plane chunks or unpermuting gather:
+``MultiELLOperator`` is the same one-plane layout, and its ``chunk_j`` /
+``bucket_edges`` are accepted and ignored.
 
 :func:`ell_spmv` dispatches on the device of ``x``: a CUDA tensor runs the
 hand-written kernel ``csrc/ell_spmv.cu`` (built with nvcc for ``sm_90a``
@@ -37,6 +47,7 @@ import numpy as np
 import torch
 
 from ..utils.config import real_t, resolve_device
+from .operators import LinearOperator
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "ell_spmv.cu")
@@ -88,6 +99,106 @@ def sell_layout(nnz: np.ndarray):
     return order, widths, slice_ptr
 
 
+def _sell_pack(indptr: np.ndarray, indices: np.ndarray, m: int):
+    """SELL-32-σ packing of a CSR pattern with ``m`` columns: the int32
+    column slots (sentinel m), the row order, the slice offsets, the
+    widest slice and a ``plane(data)`` that lays out aligned CSR data as a
+    float64 weight plane."""
+    n = len(indptr) - 1
+    nnz = np.diff(indptr).astype(np.int64)
+    order, widths, slice_ptr = sell_layout(nnz)
+    # slot of entry k of sorted row r: slice_ptr[r // 32] + 32 k + r % 32
+    nnz_s = nnz[order]
+    total = int(nnz.sum())
+    sorted_row = np.repeat(np.arange(n, dtype=np.int64), nnz_s)
+    k = np.arange(total, dtype=np.int64) - np.repeat(np.cumsum(nnz_s) - nnz_s,
+                                                     nnz_s)
+    slot = slice_ptr[sorted_row // SLICE] + SLICE * k + sorted_row % SLICE
+    pos = np.repeat(indptr[:-1][order], nnz_s) + k
+    nslots = int(slice_ptr[-1])
+    cols = np.full(nslots, m, dtype=np.int32)
+    cols[slot] = indices[pos]
+
+    def plane(d):
+        w = np.zeros(nslots, dtype=np.float64)
+        w[slot] = d[pos]
+        return w
+
+    return cols, order, slice_ptr, int(widths.max(initial=0)), plane
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ELLOperator:
+    """An n×m sparse matrix in SELL-32-σ form on one device: one weight
+    plane over its own pattern, applied by :func:`ell_spmv` in natural row
+    and column numbering."""
+
+    n: int                    # rows
+    m: int                    # columns, the length of x
+    nnz: int
+    cols: torch.Tensor        # (slots,) int32, plane-major per slice
+    w: torch.Tensor           # (slots,) weights
+    row_ids: torch.Tensor     # (n,) int32 natural row of each sorted row
+    slice_ptr: torch.Tensor   # (nslices + 1,) int64 first slot of each slice
+    max_width: int
+    diag: torch.Tensor        # (min(n, m),) natural diagonal
+
+    @property
+    def shape(self):
+        return (self.n, self.m)
+
+    @property
+    def pattern(self):
+        return self
+
+    @classmethod
+    def from_csr(cls, A, dtype="float32", device=None):
+        """Pack a scipy sparse matrix (host, setup time); ``device=None``
+        is the card."""
+        import scipy.sparse as sp
+
+        device = resolve_device(device)
+        dt = real_t(dtype)
+        A = sp.csr_matrix(A)
+        A.sort_indices()
+        n, m = A.shape
+        cols, order, slice_ptr, width, plane = _sell_pack(A.indptr, A.indices, m)
+        return cls(
+            n=n, m=m, nnz=int(A.nnz), cols=torch.as_tensor(cols, device=device),
+            w=torch.as_tensor(plane(A.data)).to(device=device, dtype=dt),
+            row_ids=torch.as_tensor(order.astype(np.int32), device=device),
+            slice_ptr=torch.as_tensor(slice_ptr, device=device),
+            max_width=width,
+            diag=torch.as_tensor(A.diagonal(), dtype=dt, device=device))
+
+    @property
+    def padding(self) -> float:
+        """Padding slots over the matrix's entries."""
+        return self.cols.numel() / max(self.nnz, 1) - 1.0
+
+    def mult(self, x: torch.Tensor) -> torch.Tensor:
+        return ell_spmv(self, x)
+
+    def diagonal(self) -> torch.Tensor:
+        return self.diag
+
+    def operator(self) -> LinearOperator:
+        return LinearOperator(self.shape, self.mult, self.diagonal)
+
+
+class MultiELLOperator(ELLOperator):
+    """The JAX package's width-bucketed operator for the variable row
+    widths of higher-order matrices.  SELL-32-σ already takes rows of any
+    width without global padding, so this is :class:`ELLOperator` itself:
+    ``chunk_j`` and ``bucket_edges`` (the TPU kernel's plane chunks and
+    width buckets) are accepted for the JAX signature and ignored."""
+
+    @classmethod
+    def from_csr(cls, A, dtype="float32", chunk_j: int = 8, bucket_edges=None,
+                 device=None):
+        return super().from_csr(A, dtype, device=device)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class MultiELLPair:
     """A pair of n×n matrices in SELL-32-σ form on one device."""
@@ -129,32 +240,23 @@ class MultiELLPair:
             out[np.searchsorted(pkeys, rows * big + X.indices)] = X.data
             return out
 
-        nnz = np.diff(P.indptr).astype(np.int64)
-        order, widths, slice_ptr = sell_layout(nnz)
-        # slot of entry k of sorted row r: slice_ptr[r // 32] + 32 k + r % 32
-        nnz_s = nnz[order]
-        sorted_row = np.repeat(np.arange(n, dtype=np.int64), nnz_s)
-        k = np.arange(P.nnz, dtype=np.int64) - np.repeat(np.cumsum(nnz_s) - nnz_s,
-                                                         nnz_s)
-        slot = slice_ptr[sorted_row // SLICE] + SLICE * k + sorted_row % SLICE
-        pos = np.repeat(P.indptr[order], nnz_s) + k
-        nslots = int(slice_ptr[-1])
-        cols = np.full(nslots, n, dtype=np.int32)
-        cols[slot] = P.indices[pos]
+        cols, order, slice_ptr, width, pack = _sell_pack(P.indptr, P.indices, n)
 
         def plane(d):
-            w = np.zeros(nslots, dtype=np.float64)
-            w[slot] = d[pos]
-            return torch.as_tensor(w).to(device=device, dtype=dt)
+            return torch.as_tensor(pack(d)).to(device=device, dtype=dt)
 
         return MultiELLPair(
             n=n, nnz=int(P.nnz), cols=torch.as_tensor(cols, device=device),
             w0=plane(aligned(M0)), w1=plane(aligned(M1)),
             row_ids=torch.as_tensor(order.astype(np.int32), device=device),
             slice_ptr=torch.as_tensor(slice_ptr, device=device),
-            max_width=int(widths.max(initial=0)),
+            max_width=width,
             diag0=torch.as_tensor(M0.diagonal(), dtype=dt, device=device),
             diag1=torch.as_tensor(M1.diagonal(), dtype=dt, device=device))
+
+    @property
+    def m(self) -> int:
+        return self.n
 
     @property
     def padding(self) -> float:
@@ -188,31 +290,37 @@ class CombinedELL:
     pair: MultiELLPair
     w: torch.Tensor           # (slots,) weights c0·w0 + c1·w1
 
+    @property
+    def pattern(self) -> MultiELLPair:
+        return self.pair
+
     def mult(self, x: torch.Tensor) -> torch.Tensor:
         return ell_spmv(self, x)
 
 
 def _check(A, x: torch.Tensor):
-    if not isinstance(A, CombinedELL):
-        raise ValueError("ell_spmv applies a weight plane "
-                         "(MultiELLPair.combined), not a pair")
-    pair, w = A.pair, A.w
-    if x.shape != (pair.n,):
-        raise ValueError(f"x must have shape ({pair.n},), got {tuple(x.shape)}")
+    """The pattern and the weight plane of a one-plane holder
+    (:class:`CombinedELL` or :class:`ELLOperator`)."""
+    if not isinstance(A, (CombinedELL, ELLOperator)):
+        raise ValueError("ell_spmv applies a weight plane (MultiELLPair.combined "
+                         "or an ELLOperator), not a pair")
+    pair, w = A.pattern, A.w
+    if x.shape != (pair.m,):
+        raise ValueError(f"x must have shape ({pair.m},), got {tuple(x.shape)}")
     if x.device != w.device or x.dtype != w.dtype:
         raise ValueError(f"x is {x.dtype} on {x.device}, the weights "
                          f"{w.dtype} on {w.device}")
     return pair, w
 
 
-def ell_spmv_plain(A: CombinedELL, x: torch.Tensor) -> torch.Tensor:
+def ell_spmv_plain(A, x: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version, on any device.  Level j of every sorted
     row whose slice is wider than j: its weight times the gathered x (a
     sentinel column reads the zero appended to x), added in order
     j = 0, 1, ... (level 0 initialises); the row sums go to their natural
     rows."""
     pair, w = _check(A, x)
-    y = torch.empty_like(x)
+    y = x.new_empty(pair.n)
     if pair.n == 0:
         return y
     xp = torch.cat([x, x.new_zeros(1)])
@@ -220,7 +328,7 @@ def ell_spmv_plain(A: CombinedELL, x: torch.Tensor) -> torch.Tensor:
     base = pair.slice_ptr[r // SLICE] + r % SLICE
     width = (pair.slice_ptr[r // SLICE + 1] - pair.slice_ptr[r // SLICE]) // SLICE
     last = max(pair.cols.numel() - 1, 0)
-    acc = torch.zeros_like(x)
+    acc = x.new_zeros(pair.n)
     for j in range(pair.max_width):
         q = torch.clamp(base + SLICE * j, max=last)
         p = w[q] * xp.index_select(0, pair.cols[q])
@@ -229,8 +337,9 @@ def ell_spmv_plain(A: CombinedELL, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def ell_spmv(A: CombinedELL, x: torch.Tensor) -> torch.Tensor:
-    """``A x`` for a weight plane ``A`` (:meth:`MultiELLPair.combined`).
+def ell_spmv(A, x: torch.Tensor) -> torch.Tensor:
+    """``A x`` for a weight plane ``A`` (:meth:`MultiELLPair.combined`, or
+    an :class:`ELLOperator`).
 
     CUDA tensors launch the kernel (and count the launch in
     ``ell_spmv.launches``); CPU tensors take :func:`ell_spmv_plain`."""
@@ -244,13 +353,13 @@ def ell_spmv(A: CombinedELL, x: torch.Tensor) -> torch.Tensor:
     fns = {torch.float32: "ell_spmv_f32", torch.float64: "ell_spmv_f64"}
     if x.dtype not in fns:
         raise ValueError(f"unsupported dtype {x.dtype}")
-    y = torch.empty_like(x)
+    y = x.new_empty(pair.n)
     if pair.n == 0:
         return y
     lib = build()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = getattr(lib, fns[x.dtype])(
-        x.data_ptr(), pair.n, pair.cols.data_ptr(), w.data_ptr(),
+        x.data_ptr(), pair.m, pair.cols.data_ptr(), w.data_ptr(),
         pair.row_ids.data_ptr(), pair.slice_ptr.data_ptr(), pair.n,
         ROWS_PER_BLOCK, y.data_ptr(), stream)
     if rc != 0:

@@ -8,7 +8,8 @@ tensor (hex) bases the full matrices are Kronecker products of the 1D
 acting on a flattened ``(k, j, i)`` tensor is ``kron(Fz, Fy, Fx)``.  Dense
 (simplex) bases already are the full matrices ``B (nq, nd)`` and
 ``G (nq, nd, 3)``.  Packed symmetric diffusion qdata is
-``[00, 11, 22, 01, 02, 12]``.
+``[00, 11, 22, 01, 02, 12]``; convection qdata is the pulled-back velocity
+per reference axis (``ops/convection.py``).
 
 The contractions are ``torch.matmul`` in full float32 (TF32 is off, see
 ``utils/config.py``), as the JAX package leaves them to XLA at HIGHEST.
@@ -91,7 +92,12 @@ def diffusion_qT(qd_packed: torch.Tensor) -> torch.Tensor:
     return qd_packed.permute(0, 2, 1).contiguous()
 
 
-_QT = {"mass": mass_qT, "diffusion": diffusion_qT}
+def convection_qT(qd: torch.Tensor) -> torch.Tensor:
+    """(ne, nq, 3) → (3, nq, ne), contiguous."""
+    return qd.permute(2, 1, 0).contiguous()
+
+
+_QT = {"mass": mass_qT, "diffusion": diffusion_qT, "convection": convection_qT}
 
 
 def transpose_qdata(kind: str, qd: torch.Tensor) -> torch.Tensor:
@@ -124,7 +130,19 @@ def diffusion_apply(lb: LaneBasis, qT: torch.Tensor,
     return lb.SG.T @ torch.cat(D, dim=0)
 
 
-_APPLY = {"mass": mass_apply, "diffusion": diffusion_apply}
+def convection_apply(lb: LaneBasis, qT: torch.Tensor,
+                     eT: torch.Tensor) -> torch.Tensor:
+    """Bᵀ (q · (G u)), ``qT`` (3, nq, ne)."""
+    t = lb.SG @ eT
+    nq = lb.nq
+    s = qT[0] * t[:nq]
+    for d in range(1, 3):
+        s = s + qT[d] * t[d * nq:(d + 1) * nq]
+    return lb.Bf.T @ s
+
+
+_APPLY = {"mass": mass_apply, "diffusion": diffusion_apply,
+          "convection": convection_apply}
 
 
 def mass_diffusion_apply(lb: LaneBasis, qmT: torch.Tensor, qdT: torch.Tensor,
@@ -160,6 +178,7 @@ class AffineOps:
 
     Mhat: torch.Tensor                 # (nd, nd)  BᵀWB
     Khat: Tuple[torch.Tensor, ...]     # packed-sym component matrices
+    Chat: Tuple[torch.Tensor, ...]     # per reference axis BᵀWĜ_d
 
 
 def affine_ops(db: DeviceBasis, lb: LaneBasis) -> AffineOps:
@@ -176,9 +195,11 @@ def affine_ops(db: DeviceBasis, lb: LaneBasis) -> AffineOps:
         if a != b:
             K = K + K.T
         Khat.append(K)
+    Chat = [Bf.T @ (W[:, None] * g) for g in G]
     kw = dict(dtype=lb.Bf.dtype, device=lb.Bf.device)
     return AffineOps(Mhat=torch.as_tensor(Mhat, **kw),
-                     Khat=tuple(torch.as_tensor(K, **kw) for K in Khat))
+                     Khat=tuple(torch.as_tensor(K, **kw) for K in Khat),
+                     Chat=tuple(torch.as_tensor(C, **kw) for C in Chat))
 
 
 def separable_collapse(qT: torch.Tensor, W: torch.Tensor,
@@ -221,9 +242,16 @@ def affine_diffusion_apply(af: AffineOps, d: torch.Tensor,
     return _scaled_rows(af.Khat, [d[c] for c in range(d.shape[0])], eT)
 
 
+def affine_convection_apply(af: AffineOps, d: torch.Tensor,
+                            eT: torch.Tensor) -> torch.Tensor:
+    """Σ_d Ĉ_d @ (d_d ∘ eT); ``d`` is (3, ne|1)."""
+    return _scaled_rows(af.Chat, [d[c] for c in range(d.shape[0])], eT)
+
+
 _AFF_MATS = {
     "mass": lambda af, d: (af.Mhat,),
     "diffusion": lambda af, d: af.Khat[:d.shape[0]],
+    "convection": lambda af, d: af.Chat[:d.shape[0]],
 }
 
 

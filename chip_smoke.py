@@ -194,6 +194,50 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (``BioheatOperator.mult``, an M_ρc solve a stage) on cardiac hex n=16
    in float64, CUDA against CPU tensors (1e-10, equal CG counts).
 
+19. The CEED BP harness (``benchmarks/bp.run``, the counterpart of the root
+   ``benchmarks/bp.py``): BP1 (mass) and BP3 (diffusion), orders 1-4,
+   Jacobi, 100 fixed CG iterations (``check_convergence=False``) from
+   b = 1, each solve timed with CUDA events after a warm-up solve.  First
+   every mode at n=4 in float64 (8 iterations: the default 100 reach
+   exact convergence and then 0/0 on these tiny spaces) on CUDA and on CPU
+   tensors, within 1e-10 with equal counts, and on the ELL spaces the PA
+   operator against the FULL-assembled one within 1e-12·max|y|.  Then
+   float32 at full width, n = max(2, N // order) elements a side: hex
+   generic and ``--structured`` at N = 128 (about 2.1M dofs at every
+   order), ``--simplex`` PA at N = 96 and ``--ell`` on hexes and tets at
+   N = 64 (both cut; PERF.md section 4).  Prints for every run MDof/s,
+   setup seconds, peak memory, the kernels it launched, the lane path it
+   took and, for ELL, the SELL padding.  The launch counts are zeroed
+   before each (mode, order)'s ``bp.run`` and read right after it; only
+   then are the kernels held at that run's shapes: each ELL run's plane
+   by ``ell_spmv`` bitwise against plain and the PA operator of the same
+   space against it (within 1e-5·max|y|), each ELL space's FULL-assembly
+   duplicate sum (``segment_sum``) bitwise, and each PA space's
+   restriction (hex nd = 8/27/64/125, tet nd = 4/10/20/35) bitwise in
+   float32 and float64, timed at order 4.  ``ell_spmv`` on the hex
+   order-4 BP3 plane (rows 729 wide) is also timed beside cuSPARSE and
+   its bound.
+20. ex2 elasticity (``models/elasticity.solve``): first a 16x2x2 beam on
+   CUDA and on CPU tensors (1e-10, equal counts) and, on a 64x8x8 beam,
+   the PA apply against the FULL-assembled elasticity matrix applied by
+   ``ell_spmv`` (1e-10); then the 128x16x16 beam of length 8 (x = 0
+   fixed, the load (0, 0, -0.01) on x = 8), order 2, vdim 3, 839,619
+   dofs, float64, Jacobi-PCG at rel_tol 1e-9: iterations, seconds, ms an
+   iteration, the tip deflection and peak memory; holds convergence and
+   ||B - A_c u|| <= 1e-8 ||B||, and launches of the gather-sum and the
+   segment-sum (one of each per component and apply); then the beam's
+   domain and boundary-face restrictions bitwise.
+21. Convection-diffusion with a Robin boundary by restarted GMRES:
+   -0.01 lap u + (1, 0.5, 0.25).grad u = 1 on the unit cube, 0.01 du/dn +
+   u = 0 on every face (``diffusion``, ``convection`` with a constant
+   ``vector_coeff``, ``add_boundary_integrator("mass")``, ``domain_lf``);
+   first n=6 in float64 on CUDA and on CPU tensors (1e-10, equal
+   iterations); then 64^3, order 2, 2,146,689 dofs, float32, GMRES(50)
+   with Jacobi at rel_tol 1e-6: iterations, seconds and whether convection
+   took the affine lane path; holds convergence and ||b - A x|| <= 1e-5
+   ||b||; then the cube's domain and boundary-face (nd 9) restrictions
+   bitwise.
+
 The last two lines of standard output are one JSON object describing the
 kernels and one JSON object with the device.  The ``gather_transpose`` and
 ``segment_sum`` entries also carry ``tet_*`` fields, their float32 numbers
@@ -203,7 +247,12 @@ instantiation on [18]'s hex n=126 K_qd with the launches of that run.  The ``tak
 ``take_along_lanes`` entries report t1 and t2; their ``probes`` field
 holds u1's and u2's numbers (each width), with the launch floor; every
 probe entry's ``measures`` says that its times run out of L2 while its
-``bound_ms`` is the HBM byte bound.  The ``gather_sum`` entry's ``ms`` is its element-major L→E; its
+``bound_ms`` is the HBM byte bound.  The ``gather_transpose`` and ``segment_sum``
+entries carry ``bp_hex_o4_*`` and ``bp_tet_o4_*`` fields (float32, [19]'s
+order-4 restrictions) and ``bp_launches``; the ``ell_spmv`` entry carries
+``bp_*`` fields, its float32 numbers on [19]'s hex order-4 BP3 plane, and
+``bp_launches``, the launches of [19]'s full-size runs (each run's window
+summed).  The ``gather_sum`` entry's ``ms`` is its element-major L→E; its
 ``round_trip_*`` fields are the hex
 CG apply's restriction round trip (``mult_t`` + ``mult_transpose_t``),
 which that entry's ``ms`` measured before the (nd, ne) directions had
@@ -1780,6 +1829,360 @@ def phase_entry(dev):
         configure(dtype=old)
 
 
+# [19]: the BP harness's modes, each with its full-size elements a side
+# (about 2.1M dofs at every order; tets and ELL cut, PERF.md section 4)
+BP_MODES = (("hex", {}, 128), ("hex structured", dict(structured=True), 128),
+            ("tet", dict(simplex=True), 96), ("hex --ell", dict(ell=True), 64),
+            ("tet --ell", dict(ell=True, simplex=True), 64))
+BP_KERNELS = ("gather_transpose", "segment_sum", "ell_spmv")
+# [20]: ex2's cantilever (x = 0 fixed, attribute 5; the load on x = 8,
+# attribute 3), order 2, float64.  rel_tol 1e-9: CG stops on the Jacobi-
+# weighted (r, z), which at 1e-8 leaves ||B - A u|| at 1.36e-8 ||B|| on a
+# 64x8x8 rehearsal (float64, CPU), above the 1e-8 the phase holds
+ELASTICITY = dict(order=2, fixed_bdr=(5,), force_bdr=(3,), dtype="float64",
+                  rel_tol=1e-9, max_iter=20000)
+# [21]: -0.01 lap u + (1, 0.5, 0.25).grad u = 1, 0.01 du/dn + u = 0
+CONVECTION = dict(eps=0.01, vel=(1.0, 0.5, 0.25), robin=1.0, rel_tol=1e-6,
+                  restart=50, max_iter=2000)
+
+
+def ell_plane_bound(op, elsize):
+    """Least bytes of one single-plane SpMV (each entry's int32 column and
+    weight, each row's id and y, x once) and their bound at the HBM rate
+    in ms; ~2 flops an entry need far less at 67 TFLOP/s."""
+    least = op.nnz * (4 + elsize) + op.n * (4 + elsize) + op.m * elsize
+    return least, least / HBM_BYTES_PER_S * 1e3
+
+
+def pa_against_ell(r, dev, dtype, tol, tag):
+    """The PA operator of the run's space against its FULL-assembled ELL
+    operator on a seeded random vector, within ``tol``·max|y|."""
+    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
+
+    kind = "mass" if r["bench"] == "BP1" else "diffusion"
+    pa = BilinearForm(r["fes"], dev).add_domain_integrator(kind).assemble(dtype)
+    gen = torch.Generator(device=dev).manual_seed(19 + r["order"])
+    x = torch.randn(r["fes"].ndof, generator=gen, device=dev, dtype=r["x"].dtype)
+    y = pa.mult(x)
+    err = float((r["op"].mult(x) - y).abs().max() / y.abs().max())
+    check(err <= tol, f"{tag} {r['bench']} order {r['order']}: PA and ELL agree "
+          f"within {tol} max|y| ({err:.2e})")
+    return err
+
+
+def check_ell_plane(op, seed, what):
+    """``ell_spmv`` on the plane ``op`` bitwise against its plain version
+    on a seeded random vector; returns (x, y, plain's y)."""
+    from cardiac_ablation_ecm2_tpu_torch.ops import ell
+
+    gen = torch.Generator(device=op.w.device).manual_seed(seed)
+    x = torch.randn(op.m, generator=gen, device=op.w.device, dtype=op.w.dtype)
+    y, ref = ell.ell_spmv(op, x), ell.ell_spmv_plain(op, x)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(y), bits(ref)), f"{what}: ell_spmv (widest row "
+          f"{op.max_width}) bitwise equal to plain")
+    return x, y, ref
+
+
+def check_sum_duplicates(kc, fes, dev, what):
+    """The segment-sum of FULL assembly's duplicate entries (BP3's element
+    matrices of ``fes``, float64 values as ``assemble_matrix`` sums them)
+    bitwise against its plain version."""
+    from cardiac_ablation_ecm2_tpu_torch.ops import bilinearform as bf
+    from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
+
+    form = bf.BilinearForm(fes, dev).add_domain_integrator("diffusion")
+    keys, vals = bf._element_entries(fes, form, form._terms, False,
+                                     torch.float32, 1)
+    _, slots, offsets = bf.duplicate_segments(keys)
+    del keys
+    kc.compare("segment_sum", f"{what}FULL assembly's duplicate sum "
+               f"({vals.numel()} entries into {offsets.numel() - 1}) float64",
+               bg.segment_sum, bg.segment_sum_plain, (vals, slots, offsets),
+               tag="[19]")
+    del vals, slots, offsets
+    torch.cuda.empty_cache()
+
+
+def check_bp_plane(r, dev):
+    """``ell_spmv`` on a BP ELL plane (hex order 4: rows up to 729 wide)
+    bitwise against its plain version, float32, timed against plain and
+    cuSPARSE ``torch.mv`` with the bound; returns the numbers."""
+    from cardiac_ablation_ecm2_tpu_torch.ops import ell
+
+    op, A = r["op"], r["matrix"]
+    x, y, ref = check_ell_plane(op, 29, "[19] hex order-4 BP3 plane")
+    C = torch.sparse_csr_tensor(
+        torch.as_tensor(A.indptr, dtype=torch.int32, device=dev),
+        torch.as_tensor(A.indices, dtype=torch.int32, device=dev),
+        torch.as_tensor(A.data, dtype=op.w.dtype, device=dev), size=A.shape)
+    least, bound = ell_plane_bound(op, x.element_size())
+    ms = time_ms(lambda: ell.ell_spmv(op, x))
+    plain_ms = time_ms(lambda: ell.ell_spmv_plain(op, x), reps=5)
+    lib_ms = time_ms(lambda: torch.mv(C, x))
+    print(f"[19] ell_spmv on the hex order-4 BP3 plane float32: n={op.n} nnz="
+          f"{op.nnz}, widest row {op.max_width}, padding {op.padding:.4f}; "
+          f"bitwise equal to plain; kernel {ms:.4f} ms ({least / ms / 1e6:.1f} "
+          f"GB/s of least work), plain {plain_ms:.4f} ms, cuSPARSE torch.mv "
+          f"(int32) {lib_ms:.4f} ms; least work {least / 1e6:.1f} MB, bound "
+          f"{bound:.4f} ms")
+    return dict(bp_ms=ms, bp_plain_ms=plain_ms, bp_library_ms=lib_ms,
+                bp_bound_ms=bound, bp_max_abs_err=float((y - ref).abs().max()),
+                bp_shape=f"hex order 4 BP3, n={op.n}, nnz={op.nnz}, "
+                         f"width {op.max_width}")
+
+
+def add_launches(total, got):
+    return dict(got) if total is None else {k: total[k] + got[k] for k in got}
+
+
+def phase_bp(kc, dev):
+    """[19] The CEED BP harness (``benchmarks/bp.run``), BP1 and BP3 at
+    orders 1-4, float32, Jacobi, 100 fixed CG iterations, in every mode;
+    first each mode at n=4 in float64 on CUDA and on CPU tensors.  The
+    launch counts are zeroed before each (mode, order)'s ``bp.run`` and
+    read just after it; the kernels are held at that run's shapes after
+    the read.  Returns the summed launches and the numbers for the kernels
+    line."""
+    from cardiac_ablation_ecm2_tpu_torch.benchmarks import bp
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import restriction_for
+
+    t0 = time.perf_counter()
+    worst = pa_worst = 0.0
+    for label, kw, _ in BP_MODES:
+        card = bp.run((1, 2, 3, 4), 4, "float64", 8, device=dev, **kw)
+        cpu = bp.run((1, 2, 3, 4), 4, "float64", 8, device="cpu", **kw)
+        for a, b in zip(card, cpu):
+            rel = rel_diff(a["x"], b["x"])
+            worst = max(worst, rel)
+            check(rel <= 1e-10 and a["cg_iters"] == b["cg_iters"],
+                  f"[19] {label} {a['bench']} order {a['order']} n=4 f64: CUDA "
+                  f"within 1e-10 of the CPU ({rel:.2e})")
+            if kw.get("ell"):
+                pa_worst = max(pa_worst, pa_against_ell(a, dev, "float64", 1e-12,
+                                                        "[19] n=4 f64"))
+        del card, cpu
+    print(f"[19] n=4 float64, 8 CG iterations, every mode and order: CUDA "
+          f"against CPU tensors max rel diff {worst:.3e}; PA against ELL on "
+          f"the ELL spaces {pa_worst:.3e} (8 iterations: the default 100 "
+          f"reach exact convergence and 0/0 on these 125-729-dof spaces)")
+    numbers, launches = {}, None
+    for label, kw, n in BP_MODES:
+        for order in (1, 2, 3, 4):
+            start_main_path()
+            runs = bp.run((order,), n, "float32", 100, device=dev, **kw)
+            launches = add_launches(launches, main_path_launches())
+            what = f"BP {label} order {order}"
+            for r in runs:
+                # BP1's residual underflows float32 inside the 100 fixed
+                # iterations and the next step divides 0 by 0, in the JAX
+                # harness as here: its x is reported, BP3's held finite
+                finite = bool(torch.isfinite(r["x"]).all())
+                if r["bench"] == "BP3":
+                    check(finite, f"[19] {label} BP3 order {order}: finite x")
+                ran = ", ".join(f"{k} {v}" for k, v in r["launches"].items() if v)
+                extra = ""
+                if r["padding"] is not None:
+                    check_ell_plane(r["op"], 19 + order, f"[19] {what} {r['bench']}")
+                    err = pa_against_ell(r, dev, "float32", 1e-5, "[19]")
+                    extra = (f"; SELL padding {r['padding']:.4f}, widest "
+                             f"{r['op'].max_width}, ell_spmv bitwise equal to "
+                             f"plain, PA vs ELL {err:.2e}")
+                lane = getattr(r["op"], "lane", None)
+                if lane is not None:
+                    extra += ("; lane path " + ("affine" if lane.aff_terms
+                                                else "per point"))
+                print(f"[19] {label} {r['bench']} order {order} n={max(2, n // order)}: "
+                      f"{r['ndof']} dofs, x {'finite' if finite else 'NaN (0/0)'}, "
+                      f"{r['MDof_per_s']} MDof/s "
+                      f"({r['seconds_exact']:.4f} s for {r['cg_iters']} CG, CUDA "
+                      f"events), setup {r['setup_s']:.2f} s, peak "
+                      f"{r['peak_bytes'] / 2**30:.3f} GiB, launches "
+                      f"{ran or 'none'}{extra}")
+            fes = runs[0]["fes"]
+            if kw.get("ell"):
+                check_sum_duplicates(kc, fes, dev, f"{what} ")
+            elif not kw.get("structured"):      # Cartesian: no gather kernels
+                check_restriction(kc, restriction_for(fes, dev), f"{what} ",
+                                  "[19]", seed=19 + order, timed=order == 4)
+            if label == "hex --ell" and order == 4:
+                numbers.update(check_bp_plane(runs[1], dev))
+            del runs, fes
+    print(f"[19] launches of the full-size runs (counts zeroed before each "
+          f"bp.run and read after it, summed): "
+          + ", ".join(f"{k} {launches[k]}" for k in BP_KERNELS))
+    for k in BP_KERNELS:
+        check(launches[k] > 0, f"[19] the BP runs launched {k}")
+    print(f"[19] phase {time.perf_counter() - t0:.1f} s")
+    return launches, numbers
+
+
+def elasticity_residual(res, dev):
+    """||B - A_c u|| / ||B|| of an elasticity result, float64."""
+    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
+    from cardiac_ablation_ecm2_tpu_torch.ops.linearform import boundary_lf_vector
+    from cardiac_ablation_ecm2_tpu_torch.ops.operators import form_linear_system
+
+    fes = res.fes
+    A = BilinearForm(fes, dev).add_domain_integrator(
+        "elasticity", (1.0, 1.0)).assemble("float64").operator()
+    b = boundary_lf_vector(fes, [0.0, 0.0, -1e-2], ELASTICITY["force_bdr"],
+                           dtype="float64", device=dev)
+    ess = np.concatenate([fes.essential_dofs(ELASTICITY["fixed_bdr"]).astype(np.int64)
+                          + c * fes.ndof_scalar for c in range(3)])
+    Ac, B = form_linear_system(A, ess, torch.zeros_like(b), b)
+    return float(torch.linalg.norm(B - Ac.mult(res.u)) / torch.linalg.norm(B))
+
+
+def phase_elasticity(kc, dev):
+    """[20] ex2 elasticity (``models/elasticity.solve``) on the 128x16x16
+    beam of length 8, order 2, vdim 3, float64; first a 16x2x2 beam on
+    CUDA and on CPU tensors, and the PA apply against the FULL-assembled
+    matrix (on the ELL kernel) on a 64x8x8 beam; after the solve, its
+    domain and boundary restrictions bitwise.  Returns the launches."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import (
+        bdr_restriction_for, restriction_for)
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2_tpu_torch.models import elasticity
+    from cardiac_ablation_ecm2_tpu_torch.ops import ell
+    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
+
+    t0 = time.perf_counter()
+    small = [elasticity.solve(make_cartesian_3d(16, 2, 2, sx=8.0), device=d,
+                              **ELASTICITY) for d in (dev, "cpu")]
+    rel = rel_diff(small[0].u, small[1].u)
+    check(rel <= 1e-10 and small[0].iterations == small[1].iterations,
+          f"[20] 16x2x2 beam: CUDA within 1e-10 of the CPU ({rel:.2e}), equal CG")
+    fes = FESpace(make_cartesian_3d(64, 8, 8, sx=8.0), 2, vdim=3)
+    form = BilinearForm(fes, dev).add_domain_integrator("elasticity", (1.0, 1.0))
+    t1 = time.perf_counter()
+    A = form.assemble_matrix("float64")
+    full_s = time.perf_counter() - t1
+    E = ell.MultiELLOperator.from_csr(A, "float64", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    x = torch.randn(fes.ndof, generator=gen, device=dev, dtype=torch.float64)
+    y = form.assemble("float64").mult(x)
+    full_err = float((E.mult(x) - y).abs().max() / y.abs().max())
+    check(full_err <= 1e-10, f"[20] PA apply within 1e-10 of the FULL matrix's "
+          f"({full_err:.2e})")
+    print(f"[20] 16x2x2 beam f64: CUDA vs CPU rel diff {rel:.3e}, CG "
+          f"{small[0].iterations} both; 64x8x8 beam ({fes.ndof} dofs): FULL "
+          f"assembly {full_s:.2f} s, {A.nnz} nnz, PA apply vs the matrix on "
+          f"ell_spmv {full_err:.3e}")
+    del E, A, form, fes, small
+    mesh = make_cartesian_3d(128, 16, 16, sx=8.0)
+    t1 = time.perf_counter()
+    FESpace(mesh, ELASTICITY["order"], vdim=3)      # timed alone, thrown away
+    fes_s = time.perf_counter() - t1
+    start_main_path()
+    t1 = time.perf_counter()
+    res = elasticity.solve(mesh, device=dev, **ELASTICITY)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    launches = main_path_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(res.fes.ndof == 839_619, "[20] 839,619 dofs")
+    check(res.converged and bool(torch.isfinite(res.u).all()), "[20] converged")
+    true_res = elasticity_residual(res, dev)
+    tip = float(res.displacement()[:, 2].min())
+    print(f"[20] ex2 cantilever 128x16x16 (length 8) order 2 vdim 3 f64: "
+          f"{res.fes.ndof} dofs; Jacobi-PCG rel_tol {ELASTICITY['rel_tol']}: "
+          f"{res.iterations} iterations in {secs:.2f} s (space, operator, "
+          f"right-hand side and solve; the space alone {fes_s:.2f} s on the "
+          f"host; {secs / res.iterations * 1e3:.3f} ms an iteration), true "
+          f"residual {true_res:.3e} of ||B||; tip deflection (min u_z) "
+          f"{tip:.6f}; peak {peak / 2**30:.3f} GiB; launches "
+          + ", ".join(f"{k} {launches[k]}" for k in RESTRICTION_KERNELS))
+    check(true_res <= 1e-8, "[20] true residual <= 1e-8 ||B||")
+    for k in ("gather_sum", "segment_sum"):
+        check(launches[k] > 0, f"[20] the elasticity solve launched {k}")
+    check_restriction(kc, restriction_for(res.fes, dev), "beam ", "[20]", seed=21)
+    check_restriction(kc, bdr_restriction_for(res.fes, dev), "beam boundary ",
+                      "[20]", seed=22)
+    print(f"[20] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def convection_problem(n, dtype, dev):
+    """[21]'s operator, right-hand side and space on the n^3 unit cube."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
+    from cardiac_ablation_ecm2_tpu_torch.ops.linearform import domain_lf
+
+    c = CONVECTION
+    fes = FESpace(make_cartesian_3d(n, n, n), 2)
+    A = (BilinearForm(fes, dev).add_domain_integrator("diffusion", c["eps"])
+         .add_domain_integrator("convection", None, vector_coeff=c["vel"])
+         .add_boundary_integrator("mass", c["robin"]).assemble(dtype))
+    return fes, A, domain_lf(fes, 1.0, dtype=dtype, device=dev)
+
+
+def solve_convection(A, b):
+    from cardiac_ablation_ecm2_tpu_torch.linalg.smoothers import jacobi
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import gmres
+
+    c = CONVECTION
+    return gmres(A.mult, b, M=jacobi(A.diagonal()), rel_tol=c["rel_tol"],
+                 restart=c["restart"], max_iter=c["max_iter"])
+
+
+def phase_gmres(kc, dev):
+    """[21] Convection-diffusion with a Robin boundary by restarted GMRES,
+    the 64^3 unit cube, order 2, float32; first n=6 in float64 on CUDA and
+    on CPU tensors; after the solve, its domain and boundary restrictions
+    bitwise.  Returns the launches."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import (
+        bdr_restriction_for, restriction_for)
+
+    t0 = time.perf_counter()
+    sols = []
+    for d in (dev, "cpu"):
+        _, A, b = convection_problem(6, "float64", d)
+        sols.append(solve_convection(A, b))
+    rel = rel_diff(sols[0][0], sols[1][0])
+    check(rel <= 1e-10 and sols[0][1].iterations == sols[1][1].iterations,
+          f"[21] n=6 f64: CUDA within 1e-10 of the CPU ({rel:.2e}), equal GMRES "
+          f"iterations")
+    start_main_path()
+    t1 = time.perf_counter()
+    fes, A, b = convection_problem(64, "float32", dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    x, info = solve_convection(A, b)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    launches = main_path_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(fes.ndof == 2_146_689, "[21] 2,146,689 dofs")
+    r = b.double() - A.mult(x).double()
+    true_res = float(torch.linalg.norm(r) / torch.linalg.norm(b.double()))
+    affine = [k for k, _ in A.lane.aff_terms] if A.lane is not None else []
+    print(f"[21] n=6 f64: CUDA vs CPU rel diff {rel:.3e}, GMRES "
+          f"{sols[0][1].iterations} both")
+    print(f"[21] convection-diffusion-Robin 64^3 order 2 f32: {fes.ndof} dofs; "
+          f"setup {setup_s:.2f} s; GMRES(50) Jacobi rel_tol "
+          f"{CONVECTION['rel_tol']}: {info.iterations} iterations in {secs:.2f} s "
+          f"({secs / max(info.iterations, 1) * 1e3:.3f} ms each), converged "
+          f"{info.converged}, true residual {true_res:.3e} of ||b||; "
+          f"convection on the affine lane path: {'convection' in affine} "
+          f"(affine terms {affine or 'none'}); peak {peak / 2**30:.3f} GiB; "
+          f"launches " + ", ".join(f"{k} {launches[k]}" for k in RESTRICTION_KERNELS))
+    check(info.converged and bool(torch.isfinite(x).all()), "[21] converged")
+    check(true_res <= 1e-5, "[21] true residual <= 1e-5 ||b||")
+    for k in ("gather_transpose", "segment_sum"):
+        check(launches[k] > 0, f"[21] the GMRES solve launched {k}")
+    del A
+    check_restriction(kc, restriction_for(fes, dev), "64^3 order 2 ", "[21]",
+                      seed=23)
+    check_restriction(kc, bdr_restriction_for(fes, dev), "64^3 boundary ",
+                      "[21]", seed=24)
+    print(f"[21] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
     from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
@@ -1833,6 +2236,9 @@ def main():
     del hex_mesh
     phase_heat(kc, dev)
     phase_entry(dev)
+    bp_launches, bp_numbers = phase_bp(kc, dev)
+    phase_elasticity(kc, dev)
+    phase_gmres(kc, dev)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # the restriction's kernels at their hex main-path shapes, float32: the
@@ -1864,12 +2270,23 @@ def main():
         measures="ms: L->E (ne,nd); round_trip_*: the hex CG apply's mult_t "
                  "+ mult_transpose_t, as this entry's ms measured it before",
         **kc.round_trip)
+    # the BP runs' order-4 restrictions ([19]): hex nd = 125, tet nd = 35
+    bp_rows = {"gather_transpose": "L->E (nd,ne) float32",
+               "segment_sum": "E->L (nd,ne) float32"}
+    for entry in restriction:
+        if entry["name"] in bp_rows:
+            for geom in ("hex", "tet"):
+                label = f"BP {geom} order 4 {bp_rows[entry['name']]}"
+                entry.update({f"bp_{geom}_o4_{f}": kc.times[label][f]
+                              for f in ("ms", "plain_ms", "bound_ms", "library_ms")})
+            entry["bp_launches"] = bp_launches[entry["name"]]
     print(json.dumps({"kernels": restriction + [
         dict(name="ell_spmv", route="cuda", **KERNELS["ell_spmv"],
              launches=tet_launches["ell_spmv"],
              max_abs_err=ell_numbers["max_abs_err"], ms=ell_numbers["ms"],
              plain_ms=ell_numbers["plain_ms"], bound_ms=ell_numbers["bound_ms"],
-             bound_by="bytes", library_ms=ell_numbers["library_ms"]),
+             bound_by="bytes", library_ms=ell_numbers["library_ms"],
+             bp_launches=bp_launches["ell_spmv"], **bp_numbers),
         dict(name="fused_diffusion", route="cuda", **KERNELS["fused_diffusion"],
              launches=masked_launches["fused_diffusion"], **fd_numbers,
              **bf16_numbers),

@@ -3,7 +3,7 @@
 print where the device time goes.
 
     python3 profile_step.py [hex126] [masked126] [lattice48] [tet66] [tetpa66]
-                            [poisson126] [chebyshev126]
+                            [poisson126] [chebyshev126] [ex2]
 
 Each path is set up as ``chip_smoke.py`` sets it up (float32, order 2,
 quad_extra 0, θ form, rel_tol 1e-5): ``hex126`` the generic cardiac-hex
@@ -47,6 +47,14 @@ are removed again before any other path runs.
 the 20-step eigenvalue estimate against longer power and Lanczos runs, the
 sign of the smoother's polynomial at the spectrum's top, and (r, z) of the
 PCG by iteration, with the estimate and with the Lanczos bound.
+
+``ex2`` traces [20]'s elasticity apply instead: the PA operator of the
+128x16x16 beam (order 2, vdim 3, float64) as ``models/elasticity.solve``'s
+Jacobi-PCG calls it, timed by CUDA events (median of 20 calls after
+warm-up) and traced once after a profiler warm-up call: its device time by
+kernel (the ten largest, with launches), the port's restriction kernels
+(three gathers and three segment-sums a call, one per component) and the
+device's idle share of the traced call.
 
 Needs a CUDA device.
 """
@@ -589,6 +597,55 @@ def chebyshev_bound(dev, n=126, rel_tol=1e-9):
     torch.cuda.empty_cache()
 
 
+def trace_ex2(dev):
+    """[20]'s elasticity apply on the 128x16x16 beam: time, device time by
+    kernel, the restriction kernels and the idle share."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
+
+    fes = FESpace(make_cartesian_3d(128, 16, 16, sx=8.0), 2, vdim=3)
+    A = BilinearForm(fes, dev).add_domain_integrator(
+        "elasticity", (1.0, 1.0)).assemble("float64")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    x = torch.randn(fes.ndof, generator=gen, device=dev, dtype=torch.float64)
+    ms = cs.time_ms(lambda: A.mult(x))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        A.mult(x)                              # the profiler's warm-up
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        A.mult(x)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
+    rows = {}
+    for e in prof.events():
+        if _on_device(e):
+            row = rows.setdefault(e.key, [0.0, 0])
+            row[0] += e.time_range.end - e.time_range.start
+            row[1] += 1
+    device_us = sum(r[0] for r in rows.values())
+    busy = _busy_us(prof)
+    print(f"== ex2: elasticity PA apply, 128x16x16 beam order 2 vdim 3 f64, "
+          f"{fes.ndof} dofs, {fes.mesh.ne} hexes")
+    print(f"  {ms:.3f} ms a call (CUDA events, median of 20); traced call: "
+          f"wall {wall_us / 1e3:.3f} ms, device {device_us / 1e3:.3f} ms in "
+          f"{sum(r[1] for r in rows.values())} launches, busy "
+          f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.1%}")
+    port = {}
+    for key, (us, n) in rows.items():
+        name = _port_kernel(key)
+        if name:
+            port[name] = [port.get(name, [0.0, 0])[0] + us,
+                          port.get(name, [0.0, 0])[1] + n]
+    print("  port kernels: " + ", ".join(f"{k} {v[0] / 1e3:.3f} ms ({v[1]})"
+                                         for k, v in sorted(port.items())))
+    for key, (us, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"  {us / 1e3:8.3f} ms {us / device_us:6.1%} {n:4d}x  {key[:110]}")
+
+
 def main():
     paths = sys.argv[1:] or ["hex126", "masked126", "lattice48", "tet66"]
     dev = cs.phase_device()
@@ -604,7 +661,9 @@ def main():
         trace_poisson(dev)
     if "chebyshev126" in paths:
         chebyshev_bound(dev)
-    rest = [p for p in paths if p not in ("poisson126", "chebyshev126")]
+    if "ex2" in paths:
+        trace_ex2(dev)
+    rest = [p for p in paths if p not in ("poisson126", "chebyshev126", "ex2")]
     if rest:
         instrument()
     for path in rest:

@@ -7,8 +7,11 @@ bfloat16 qdata (and raising on one it does not), and the restriction,
 the tet ELL operator, the tet partial-assembly step (merged CG, explicit
 RK4), the masked cardiac-hex lattice, the coupled
 ablation app, Poisson with each preconditioner, ex16 heat and ``entry()``
-on CUDA equal to the CPU, and the LOR operator at the [4] mesh's size
-equal to a plain composition.
+on CUDA equal to the CPU, the LOR operator at the [4] mesh's size
+equal to a plain composition, and the operator layer (single-plane ELL
+operators with rows 729 wide, the order-4 restrictions, PA forms with
+convection, boundary and vector terms, GMRES, the BP harness, elasticity)
+on CUDA equal to the CPU or bitwise to plain.
 Needs an NVIDIA GPU and nvcc; skips without a GPU.  This file imports no
 JAX, so it also runs where JAX is not installed:
 
@@ -35,6 +38,10 @@ from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import (
     make_cardiac_hex_lattice,
     make_cardiac_hex_mesh,
     make_cardiac_tet_mesh,
+)
+from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import (
+    make_cartesian_3d,
+    make_cartesian_3d_tet,
 )
 from cardiac_ablation_ecm2_tpu_torch.models import bioheat
 from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
@@ -557,3 +564,99 @@ def test_lor_operator_matches_plain_composition(cuda, quad_extra_0):
     ref = torch.zeros_like(x).index_add_(0, conn, ye.reshape(-1))
     ref = ref * keep + x * op.ess_mask
     assert float((y - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+def _stiffness(mesh, p):
+    return BilinearForm(FESpace(mesh, p), "cpu").add_domain_integrator(
+        "diffusion").assemble_matrix("float64")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_single_plane_bitwise_equals_plain(cuda, dtype):
+    """One weight plane of the operator layer's ELL operators: a hex
+    order-4 stiffness (vertex rows 729 wide) and a random rectangular
+    matrix, the kernel bitwise equal to its plain version."""
+    K = _stiffness(make_cartesian_3d(3, 3, 3), 4)
+    R = sp.random(5_003, 3_001, density=0.004, random_state=8, format="csr")
+    for A, cls in ((K, ell.MultiELLOperator), (R, ell.ELLOperator)):
+        op = cls.from_csr(A, dtype, device=cuda)
+        assert A is R or op.max_width == 729
+        x = torch.as_tensor(np.random.default_rng(9).standard_normal(A.shape[1]),
+                            dtype=dtype, device=cuda)
+        before = ell.ell_spmv.launches
+        y = op.mult(x)
+        torch.cuda.synchronize()
+        assert ell.ell_spmv.launches == before + 1 and y.shape == (A.shape[0],)
+        assert torch.equal(_bits(y), _bits(ell.ell_spmv_plain(op, x)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("geom", ["hex", "tet"])
+def test_order4_restriction_bitwise_equals_plain(cuda, dtype, geom):
+    """The order-4 maps the BP harness runs: hex nd = 125, tet nd = 35, in
+    every layout, bitwise equal to the plain versions."""
+    mesh = (make_cartesian_3d if geom == "hex" else make_cartesian_3d_tet)(5, 4, 3)
+    fes = FESpace(mesh, 4)
+    r = ElementRestriction(fes.gather_map, fes.ndof, cuda)
+    assert r.nd == (125 if geom == "hex" else 35)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    u = torch.randn(fes.ndof, generator=gen, device=cuda, dtype=dtype)
+    ue = torch.randn(r.ne * r.nd, generator=gen, device=cuda, dtype=dtype)
+    pairs = [(bg.gather_sum(u, r.g), bg.gather_sum_plain(u, r.g)),
+             (bg.gather_transpose(u, r.gm), bg.gather_transpose_plain(u, r.gm))]
+    for slots in (r.slots, r.slotsT):
+        pairs.append((bg.segment_sum(ue, slots, r.offsets),
+                      bg.segment_sum_plain(ue, slots, r.offsets)))
+    for a, b in pairs:
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_operator_layer_cuda_equals_cpu(cuda):
+    """Float64 on the card against the CPU, 1e-12: a scalar form with
+    convection and a boundary mass (affine lane path), a vdim-3 elasticity
+    form with a matrix diffusion term, their diagonals; GMRES on the
+    scalar form (equal iterations); the BP harness at n=4 in every mode
+    (8 CG iterations); a small elasticity solve (equal CG counts)."""
+    from cardiac_ablation_ecm2_tpu_torch.benchmarks import bp
+    from cardiac_ablation_ecm2_tpu_torch.linalg.smoothers import jacobi
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import gmres
+    from cardiac_ablation_ecm2_tpu_torch.models import elasticity
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    mesh = make_cartesian_3d(3, 3, 3)
+    K = torch.tensor([[2.0, 0.3, 0.1], [0.3, 1.5, 0.2], [0.1, 0.2, 1.0]],
+                     dtype=torch.float64)
+    outs = []
+    for d in (cuda, "cpu"):
+        fes = FESpace(mesh, 2)
+        A = (BilinearForm(fes, d).add_domain_integrator("diffusion", 0.05)
+             .add_domain_integrator("convection", None, vector_coeff=(1.0, 0.5, 0.25))
+             .add_boundary_integrator("mass", 1.0, marker=[1, 3]).assemble("float64"))
+        vfes = FESpace(mesh, 2, vdim=3)
+        nq = vfes.d2q.weights.shape[0]
+        V = (BilinearForm(vfes, d).add_domain_integrator("elasticity", (1.3, 0.8))
+             .add_domain_integrator("diffusion", K.expand(mesh.ne, nq, 3, 3))
+             .assemble("float64"))
+        x = torch.as_tensor(np.random.default_rng(1).standard_normal(vfes.ndof),
+                            device=d)
+        b = torch.ones(fes.ndof, dtype=torch.float64, device=d)
+        y, info = gmres(A.mult, b, M=jacobi(A.diagonal()), rel_tol=1e-10,
+                        restart=10, max_iter=500)
+        outs.append((A.mult(x[:fes.ndof]), A.diagonal(), V.mult(x), V.diagonal(),
+                     y, info.iterations))
+    for a, b in zip(outs[0][:5], outs[1][:5]):
+        assert rel(a, b) <= 1e-12
+    assert outs[0][5] == outs[1][5]
+    for kw in ({}, dict(structured=True), dict(simplex=True), dict(ell=True),
+               dict(ell=True, simplex=True)):
+        card = bp.run((1, 2, 3, 4), 4, "float64", 8, device=cuda, **kw)
+        host = bp.run((1, 2, 3, 4), 4, "float64", 8, device="cpu", **kw)
+        for a, b in zip(card, host):
+            assert a["cg_iters"] == b["cg_iters"] and rel(a["x"], b["x"]) <= 1e-10
+    res = [elasticity.solve(make_cartesian_3d(8, 2, 2, sx=4.0), 2, fixed_bdr=(5,),
+                            force_bdr=(3,), dtype="float64", device=d)
+           for d in (cuda, "cpu")]
+    assert res[0].iterations == res[1].iterations
+    assert rel(res[0].u, res[1].u) <= 1e-10

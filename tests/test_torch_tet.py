@@ -8,6 +8,7 @@ otherwise, so with no device and no GPU it raises."""
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 from cardiac_ablation_ecm2_tpu.fem import basis as jbasis
@@ -21,6 +22,7 @@ from cardiac_ablation_ecm2_tpu.mesh.cardiac import make_cardiac_tet_mesh as jmak
 from cardiac_ablation_ecm2_tpu.models import bioheat as jbio
 from cardiac_ablation_ecm2_tpu.ops import diffusion as jdiff
 from cardiac_ablation_ecm2_tpu.ops import mass as jmass
+from cardiac_ablation_ecm2_tpu_torch.benchmarks import bp
 from cardiac_ablation_ecm2_tpu_torch.fem import basis as tbasis
 from cardiac_ablation_ecm2_tpu_torch.fem import build as tbuild
 from cardiac_ablation_ecm2_tpu_torch.fem import geom_factors as tgfm
@@ -31,11 +33,17 @@ from cardiac_ablation_ecm2_tpu_torch.fem.fespace import element_node_coords
 from cardiac_ablation_ecm2_tpu_torch.fem.geometry import Geometry
 from cardiac_ablation_ecm2_tpu_torch.fem.restriction import ElementRestriction
 from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_tet_mesh
+from cardiac_ablation_ecm2_tpu_torch.models import elasticity as telasticity
 from cardiac_ablation_ecm2_tpu_torch.models.bioheat import BioheatOperator
 from cardiac_ablation_ecm2_tpu_torch.ops import diffusion as tdiff
 from cardiac_ablation_ecm2_tpu_torch.ops import mass as tmass
 from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
-from cardiac_ablation_ecm2_tpu_torch.ops.ell import MultiELLPair
+from cardiac_ablation_ecm2_tpu_torch.ops import linearform as tlf
+from cardiac_ablation_ecm2_tpu_torch.ops.ell import (
+    ELLOperator,
+    MultiELLOperator,
+    MultiELLPair,
+)
 
 L = 0.04
 KW = dict(lengths=(L, L, L / 2), electrode_radius=0.004)
@@ -180,6 +188,19 @@ _ENTRY_POINTS = {
     "MultiELLPair.from_csr_pair": lambda fes: MultiELLPair.from_csr_pair(
         BilinearForm(fes, "cpu").add_domain_integrator("mass").assemble_matrix(),
         BilinearForm(fes, "cpu").add_domain_integrator("mass").assemble_matrix()),
+    "ELLOperator.from_csr": lambda fes: ELLOperator.from_csr(
+        sp.identity(5, format="csr")),
+    "MultiELLOperator.from_csr": lambda fes: MultiELLOperator.from_csr(
+        sp.identity(5, format="csr")),
+    "BilinearForm.assemble (vdim 3)": lambda fes: BilinearForm(
+        FESpace(fes.mesh, 1, vdim=3)).add_domain_integrator("elasticity")
+    .assemble("float64"),
+    "bdr_restriction_for": lambda fes: tbuild.bdr_restriction_for(fes),
+    "bdr_geom_for": lambda fes: tbuild.bdr_geom_for(fes, dtype="float64"),
+    "boundary_lf": lambda fes: tlf.boundary_lf(fes, 1.0, dtype="float64"),
+    "elasticity.solve": lambda fes: telasticity.solve(fes.mesh, 1,
+                                                      dtype="float64"),
+    "bp.run": lambda fes: bp.run((1,), 2, "float64", 2),
 }
 
 
