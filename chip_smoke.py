@@ -237,9 +237,48 @@ Phases, in order; any failure raises and the exit code is non-zero:
    took the affine lane path; holds convergence and ||b - A x|| <= 1e-5
    ||b||; then the cube's domain and boundary-face (nd 9) restrictions
    bitwise.
+22. The sharded paths (``parallel/``) at world size 1 over NCCL, in this
+   process (``launch.run_single``; the card runs one rank, so no halo
+   exchange crosses ranks here: tier-1 holds those over gloo).  [22a]
+   the sharded bioheat step on cardiac hex n=16 in float64 at rel_tol
+   1e-10, three SDIRK33 steps: the card against world size 1 over gloo on
+   the CPU (1e-10, equal CG counts) and against the serial T-form
+   ``BioheatOperator`` on the same source (1e-8).  [22b] on [4]'s mesh and
+   space, float32, Jacobi, rel_tol 1e-5, dt 0.25, the source of
+   ``tools/dress_rehearsal.py:90-92`` centred on the mesh: host-table and
+   device setup seconds, s/step (CUDA events, two steps after a warm-up),
+   CG per stage, peak memory; the launches of the setup and three steps
+   held to the counts the CG counts imply (per stage the residual's L→E,
+   fused diffusion and E→L, and for each of the k + 1 stage applies two
+   L→E, two E→L and one fused diffusion; three E→L in setup); T within
+   1e-3 of the serial T-form step's rise with CG within ±1 a stage, and
+   the s/step ratio; then the rank's restriction (its trash slot
+   included) bitwise in float32 and float64 and ``fused_diffusion`` on
+   its packed, weight-scaled qdata.  [22c] the same with ``"chebyshev"``
+   and ``"pmg"``, each with JAX's 12 power steps (printed: the bound
+   falls short at this size, ROADMAP Queue 3) and with 60 (held within
+   1e-3 of the rise of Jacobi's T), their launches printed; after each
+   p-MG run its order-1 coarse level's local restriction bitwise and
+   ``fused_diffusion`` on that level's packed qdata at the stage's γ.  [22d] on [7]'s tet n=66 space (after
+   [16]): setup, s/step, CG, launches held, the restriction at nd = 10
+   bitwise.
+23. Sharded Poisson on [13]'s problem and space with ``"pmg"`` and
+   ``"lor"`` (after [13]): setup and solve seconds, iterations, the true
+   relative residual, u within 1e-4 max|u| of [13]'s float64 reference;
+   after each run the order-1 coarse level's local restriction bitwise
+   and ``fused_diffusion`` on its packed qdata, and after a LOR run the
+   LOR sub-hex local restriction bitwise.
+24. The z-slab lattice stepper (``parallel/cartesian_bioheat``) on the 48³
+   lattice (after [9]): s/step, CG, T against [9]'s θ (within 1e-2 of its
+   rise: its quadrature has p + 2 points a direction, [9]'s p + 1), the
+   fused diffusion kernel and no gather launched.  Last,
+   ``dryrun_multichip(torch.cuda.device_count())``: one spawned rank a
+   card over NCCL.
 
 The last two lines of standard output are one JSON object describing the
-kernels and one JSON object with the device.  The ``gather_transpose`` and
+kernels and one JSON object with the device.  The ``gather_sum``,
+``gather_transpose``, ``segment_sum`` and ``fused_diffusion`` entries carry
+``parallel_launches``, the launches of [22b]'s Jacobi run.  The ``gather_transpose`` and
 ``segment_sum`` entries also carry ``tet_*`` fields, their float32 numbers
 on [16]'s (956,820 × 10) restriction with the launches of [16]'s run; the
 ``fused_diffusion`` entry carries ``bf16_*`` fields, its bfloat16-qdata
@@ -638,14 +677,16 @@ def phase_small_end_to_end(dev):
     small_cuda_vs_cpu("[3] hex n=16", fes, dev)
 
 
-def timed_steps(op):
+def timed_steps(op, T=None):
     """One warm-up step and two steps timed with CUDA events (the protocol
-    of MFEM's reference program); returns (θ, s/step, host-clock s/step)."""
+    of MFEM's reference program) from ``T`` (default θ = 0); returns (θ or
+    T, s/step, host-clock s/step)."""
     from cardiac_ablation_ecm2_tpu_torch.linalg import ode
     from cardiac_ablation_ecm2_tpu_torch.models import bioheat
 
     step = bioheat.make_stepper(op, ode.select("sdirk33"))
-    T = torch.zeros(op.fes.ndof, dtype=op.dtype, device=op.device)
+    if T is None:
+        T = torch.zeros(op.fes.ndof, dtype=op.dtype, device=op.device)
     T, t = step(T, 0.0, 0.25)                    # warm-up step
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -1214,7 +1255,7 @@ def separable_deviation(op):
 
 def phase_lattice48(dev):
     """[9] bench.py's default: setup and three float32 steps on the 48³
-    lattice; returns the launch counts of this run."""
+    lattice; returns the launch counts of this run and its θ."""
     from cardiac_ablation_ecm2_tpu_torch.fem.cartesian import CartesianFESpace
     from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_3d
     from cardiac_ablation_ecm2_tpu_torch.models import bioheat
@@ -1262,7 +1303,7 @@ def phase_lattice48(dev):
           "the 48^3 residual launched the fused diffusion kernel, and no "
           "gather ran (structured restriction)")
     check_operator_diffusion("[9]", "48^3 lattice K_qd", op)
-    return launches
+    return launches, T
 
 
 def masked_space(n):
@@ -1629,7 +1670,8 @@ def phase_poisson(kc, dev, mesh):
     package's device preconditioners; after the ``"lor"`` solve's launches
     are read, the kernels of its two restrictions (the LOR sub-hexes', the
     order-1 space's) are held to their plain versions.  Returns the launch
-    counts of the three solves together."""
+    counts of the three solves together, and for [23] the space, the
+    float64 reference, the true-residual function and the counts."""
     from cardiac_ablation_ecm2_tpu_torch.fem.build import restriction_for
     from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
     from cardiac_ablation_ecm2_tpu_torch.models import poisson
@@ -1719,7 +1761,7 @@ def phase_poisson(kc, dev, mesh):
     check(max(diffs.values()) <= 1e-3, "[13] the three solutions within 1e-3 max|u|")
     for name in RESTRICTION_KERNELS:
         check(total[name] > 0, f"[13] the Poisson solves launched {name}")
-    return total
+    return total, (fes, u_ref, residual, its)
 
 
 def phase_heat(kc, dev, n=100):
@@ -2183,6 +2225,366 @@ def phase_gmres(kc, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# [22]-[24]: the sharded paths (parallel/), world size 1 over NCCL
+# ---------------------------------------------------------------------------
+
+#: the sharded runs' settings: bench.py's solver settings in T form
+PAR = dict(rho_c=3.6e6, k=0.54, w_cb=2e4, T_a=37.0, ess_bdr=[1, 2, 3, 4, 5, 6],
+           rel_tol=1e-5, max_iter=300)
+
+
+#: JAX's sharded Chebyshev bound: 12 power steps on D⁻¹A
+PAR_POWER_DEFAULT = 12
+#: [22c]'s runs: (preconditioner, power steps).  At 12 steps the bound
+#: falls short on the n=126 stage operator (it does from n=64 on the CPU:
+#: T off by 45% of the rise); 60 steps bound it, and those runs are held
+PAR_PRECONDS = (("chebyshev", 12), ("chebyshev", 60), ("pmg", 12), ("pmg", 60))
+#: [23]'s runs, likewise: at 12 steps "pmg" stops after 6 CG iterations
+#: with u 8e-3 of max|u| off
+PAR_POISSON = (("pmg", 12), ("pmg", 60), ("lor", 12), ("lor", 60))
+
+
+def dress_source(x):
+    """tools/dress_rehearsal.py:90-92's source, 1e6·exp(−r²/(L/8)²), centred
+    on the L × L × L/2 mesh."""
+    c = (L / 2, L / 2, L / 4)
+    r2 = sum((x[..., i] - c[i]) ** 2 for i in range(3))
+    return 1e6 * torch.exp(-r2 / (L / 8) ** 2)
+
+
+def par_steps(sim, timed=False):
+    """Three sharded SDIRK33 steps of dt 0.25 from T_a; with ``timed``, the
+    last two between CUDA events: (T, s/step, host s/step)."""
+    T, t = sim.T0, 0.0
+    for _ in range(1 if timed else 3):
+        T, t = sim.step(T, t, 0.25)
+    if not timed:
+        return T
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    a.record()
+    for _ in range(2):
+        T, t = sim.step(T, t, 0.25)
+    b.record()
+    torch.cuda.synchronize()
+    return T, a.elapsed_time(b) / 1e3 / 2, (time.perf_counter() - h0) / 2
+
+
+def serial_T_steps(fes, dev, dtype, **kw):
+    """The serial ``BioheatOperator`` in T form on the sharded runs' source,
+    three steps from T_a (``timed_steps``): (T, s/step, its CG counts)."""
+    from cardiac_ablation_ecm2_tpu_torch.models import bioheat
+
+    op = bioheat.BioheatOperator(fes, q_met=dress_source, dtype=dtype, device=dev,
+                                 **dict(SETTINGS, theta_form=False, **kw))
+    T, s_step, _ = timed_steps(op, torch.full((fes.ndof,), PAR["T_a"],
+                                              dtype=op.dtype, device=dev))
+    return T, s_step, op.cg_iterations
+
+
+def par_expected_launches(its, setup_sums=3):
+    """The launches the sharded Jacobi step implies for stage CG counts
+    ``its``: per stage the residual's A (one L→E, one fused diffusion, one
+    E→L) and k + 1 stage applies (M_ρc and A, each one L→E and one E→L; the
+    fused diffusion once), beside the setup's three E→L sums."""
+    applies = sum(k + 1 for k in its)
+    return dict(gather_sum=len(its) + 2 * applies,
+                segment_sum=setup_sums + len(its) + 2 * applies,
+                fused_diffusion=len(its) + applies)
+
+
+def par_bioheat(mesh, fes, dev, dtype, timed=False, gather=False, **kw):
+    """The sharded bioheat step at world size 1 in this process (NCCL on the
+    card, gloo on the CPU), the process group closed again afterwards:
+    (sim, T) with the rank's local T, or the global one gathered to rank 0
+    (``gather``), or with ``timed`` (sim, (T, s/step, host s/step))."""
+    from cardiac_ablation_ecm2_tpu_torch.parallel import bioheat as pbio
+    from cardiac_ablation_ecm2_tpu_torch.parallel import launch
+
+    def body(rank, world, d):
+        sim = pbio.setup(mesh, order=2, q_src=dress_source, dtype=dtype,
+                         device=d, fes=fes, **dict(PAR, **kw))
+        out = par_steps(sim, timed=timed)
+        return sim, (torch.as_tensor(sim.gather(out)) if gather else out)
+
+    return launch.run_single(body, dev)
+
+
+def check_coarse_levels(kc, dev, tag, ctx, qd_fn, seed, lor_restr=None):
+    """After a sharded p-MG or LOR run's launch counts were read: each
+    coarse level's local restriction (into its nloc + 1 dofs, trash slot
+    included) bitwise, and ``fused_diffusion`` on the level's packed,
+    weight-scaled qdata as the V-cycle built them (``qd_fn``); with
+    ``lor_restr``, the LOR sub-element restriction bitwise too."""
+    import types
+
+    for li, lv in enumerate(ctx.levels):
+        p = ctx.orders[li]
+        check_restriction(kc, lv.local.restr, f"sharded order-{p} coarse local ",
+                          tag, seed=seed + li)
+        _, qdf = qd_fn(lv.gf, li, lv.db)
+        check_operator_diffusion(tag, f"sharded order-{p} coarse qdata (packed, "
+                                 f"weight-scaled)", types.SimpleNamespace(
+                                     K_qd=qdf, db=lv.db, fes=lv.pf.fes, device=dev))
+        del qdf
+    if lor_restr is not None:
+        check_restriction(kc, lor_restr, "sharded LOR sub-hex local ", tag,
+                          seed=seed + 9)
+    torch.cuda.empty_cache()
+
+
+def phase_par_small(dev):
+    """[22a] hex n=16 float64, three steps at rel_tol 1e-10: the card
+    (NCCL) against the CPU (gloo), and against the serial T-form
+    operator."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
+
+    fes = FESpace(make_cardiac_hex_mesh(16, lengths=(L, L, L / 2),
+                                        electrode_radius=0.004), 2)
+    tight = dict(rel_tol=1e-10, max_iter=500)
+    (sg, Tg), (sc, Tc) = (par_bioheat(fes.mesh, fes, d, "float64", gather=True,
+                                      **tight) for d in (dev, "cpu"))
+    Ts, _, its_s = serial_T_steps(fes, dev, "float64", **tight)
+    card_cpu = float((Tg - Tc).abs().max())
+    card_ser = float((Tg - Ts.cpu()).abs().max())
+    print(f"[22a] sharded hex n=16 f64, world 1, {fes.ndof} dofs: card (NCCL) vs "
+          f"CPU (gloo) max|dT| {card_cpu:.3e}, CG {sg.cg_iterations} vs "
+          f"{sc.cg_iterations}; vs the serial T-form operator max|dT| "
+          f"{card_ser:.3e} (its CG {its_s}); T_max {float(Tg.max()):.8f}")
+    check(card_cpu <= 1e-10, "[22a] card within 1e-10 of the CPU")
+    check(sg.cg_iterations == sc.cg_iterations, "[22a] equal CG counts card/CPU")
+    check(card_ser <= 1e-8, "[22a] sharded within 1e-8 of the serial step")
+
+
+def phase_par_main(kc, dev, mesh, fes):
+    """[22b] the sharded step on [4]'s mesh and space, float32 Jacobi,
+    against the serial T-form step; then the rank's restriction and fused
+    diffusion at its shapes; [22c] Chebyshev and p-multigrid.  Returns the
+    launch counts of the Jacobi run (setup and three steps)."""
+    import types
+
+    from cardiac_ablation_ecm2_tpu_torch.linalg import ode
+
+    t0 = time.perf_counter()
+    start_main_path()
+    sim, (T, s_step, host_step) = par_bioheat(mesh, fes, dev, "float32",
+                                              timed=True)
+    launches = main_path_launches()
+    peak = torch.cuda.max_memory_allocated()
+    its = sim.cg_iterations
+    sec = sim.setup_seconds
+    expect = par_expected_launches(its)
+    print(f"[22b] sharded hex n=126 order 2 f32, world 1 over NCCL: {mesh.ne} "
+          f"hexes, {fes.ndof} dofs (nloc {sim.local.nloc} + trash slot); "
+          f"setup: host tables and restriction {sec['tables']:.2f} s, device "
+          f"{sec['device']:.2f} s")
+    print(f"[22b] s/step {s_step:.6f} (CUDA events; host clock {host_step:.6f}); "
+          f"CG per stage {its}; max_memory_allocated {peak / 2**30:.3f} GiB")
+    print(f"[22b] launches (setup + 3 steps): " + ", ".join(
+        f"{k} {launches[k]} (implied {expect[k]})" for k in expect)
+          + f", gather_transpose {launches['gather_transpose']}")
+    Tn = T[:-1]
+    check(Tn.shape == (fes.ndof,) and bool(torch.isfinite(Tn).all()),
+          "[22b] finite T of the expected shape")
+    for k, v in expect.items():
+        check(launches[k] == v, f"[22b] {k} launched as the code implies")
+    K_qd, db = sim.K_qd, sim.db
+    r = sim.local.restr
+    del sim
+    Ts, s_ser, its_s = serial_T_steps(fes, dev, "float32")
+    rise = float(Ts.max()) - 37.0
+    diff = float((Tn - Ts).abs().max())
+    print(f"[22b] serial T-form step on the same mesh: s/step {s_ser:.6f} "
+          f"(sharded / serial {s_step / s_ser:.3f}), CG {its_s}; max|T - "
+          f"T_serial| {diff:.3e} = {diff / rise:.3e} of the rise {rise:.6f}")
+    check(diff <= 1e-3 * rise, "[22b] within 1e-3 of the serial step's rise")
+    check(all(abs(a - b) <= 1 for a, b in zip(its, its_s)) and len(its) == len(its_s),
+          "[22b] CG counts within 1 of the serial step's, stage by stage")
+    del Ts, T
+    torch.cuda.empty_cache()
+    check_restriction(kc, r, "sharded local (trash slot included) ", "[22b]", seed=22)
+    check_operator_diffusion("[22b]", "sharded K_qd (packed, weight-scaled)",
+                             types.SimpleNamespace(K_qd=K_qd, db=db, fes=fes,
+                                                   device=dev))
+    del K_qd, r
+    gamma = float(ode.select("sdirk33").tableau.a[0, 0]) * 0.25
+    for i, (pre, power) in enumerate(PAR_PRECONDS):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start_main_path()
+        sim, (T, s_pre, _) = par_bioheat(mesh, fes, dev, "float32", timed=True,
+                                         precond=pre, cheb_power_iters=power)
+        got = main_path_launches()
+        d = float((T[:-1] - Tn).abs().max())
+        held = power > PAR_POWER_DEFAULT
+        print(f"[22c] sharded hex n=126 f32 {pre}, {power} power steps"
+              + (" (JAX's default)" if not held else "")
+              + f": setup {sim.setup_seconds['tables']:.2f} + "
+              f"{sim.setup_seconds['device']:.2f} s, s/step {s_pre:.6f} (Jacobi's / "
+              f"this {s_step / s_pre:.3f}), CG per stage {sim.cg_iterations}; "
+              f"max|T - T_jacobi| {d:.3e} = {d / rise:.3e} of the rise; "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+              + "; launches " + ", ".join(
+                  f"{k} {got[k]}" for k in RESTRICTION_KERNELS + ("fused_diffusion",))
+              + ("" if held or d <= 1e-3 * rise else
+                 "; NOT within 1e-3 of the rise: the short power bound makes the "
+                 "smoother indefinite and CG stops on (r, z) <= 0 (ROADMAP Queue 3)"))
+        check(bool(torch.isfinite(T).all()), f"[22c] {pre}: finite T")
+        if held:
+            check(d <= 1e-3 * rise,
+                  f"[22c] {pre} ({power} power steps) within 1e-3 of the rise of "
+                  f"Jacobi's T")
+        for k in ("gather_sum", "segment_sum", "fused_diffusion"):
+            check(got[k] > 0, f"[22c] {pre} launched {k}")
+        if sim.pmg is not None:
+            check_coarse_levels(kc, dev, "[22c]", sim.pmg,
+                                sim.coarse_qdata(gamma), seed=40 + 10 * i)
+        del sim, T
+    print(f"[22b-c] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_par_tet(kc, dev, mesh, fes):
+    """[22d] the sharded step on [7]'s tet n=66 mesh and space (the config-5
+    rehearsal's mesh), float32 Jacobi: setup, s/step, CG; then the rank's
+    restriction at nd = 10 bitwise."""
+    start_main_path()
+    sim, (T, s_step, host_step) = par_bioheat(mesh, fes, dev, "float32",
+                                              timed=True)
+    launches = main_path_launches()
+    peak = torch.cuda.max_memory_allocated()
+    sec = sim.setup_seconds
+    print(f"[22d] sharded tet n=66 order 2 f32, world 1: {mesh.ne} tets, "
+          f"{fes.ndof} dofs; setup: host tables and restriction "
+          f"{sec['tables']:.2f} s, device {sec['device']:.2f} s; s/step "
+          f"{s_step:.6f} (host clock {host_step:.6f}); CG per stage "
+          f"{sim.cg_iterations}; T_max {float(T.max()):.6f}; launches "
+          + ", ".join(f"{k} {launches[k]}" for k in RESTRICTION_KERNELS)
+          + f", fused diffusion {launches['fused_diffusion']}; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB")
+    check(T.shape == (fes.ndof + 1,) and bool(torch.isfinite(T).all())
+          and float(T.max()) > 37.0, "[22d] finite T that the source heats")
+    check(max(sim.cg_iterations) < PAR["max_iter"], "[22d] every stage converged")
+    expect = par_expected_launches(sim.cg_iterations)
+    for k in ("gather_sum", "segment_sum"):
+        check(launches[k] == expect[k], f"[22d] {k} launched as the code implies")
+    check(launches["fused_diffusion"] == 0, "[22d] tets run no fused diffusion")
+    r = sim.local.restr
+    del sim, T
+    torch.cuda.empty_cache()
+    check_restriction(kc, r, "sharded tet local ", "[22d]", seed=23)
+
+
+def phase_par_poisson(kc, dev, mesh, ref):
+    """[23] the sharded Poisson solve on [13]'s problem and space, float32,
+    with ``"pmg"`` and ``"lor"`` (JAX's 12 power steps, and 60):
+    iterations, seconds and the true relative residual; the 60-step
+    solutions held to [13]'s float64 reference as [13] holds its own."""
+    from cardiac_ablation_ecm2_tpu_torch.parallel import launch
+    from cardiac_ablation_ecm2_tpu_torch.parallel import poisson as ppoisson
+    from cardiac_ablation_ecm2_tpu_torch.utils.config import elapsed
+
+    fes, u_ref, residual, its13 = ref
+    scale = float(u_ref.abs().max())
+    for i, (pre, power) in enumerate(PAR_POISSON):
+        start_main_path()
+
+        def body(rank, world, d):
+            t0 = time.perf_counter()
+            s = ppoisson.setup(
+                mesh, order=2, rhs=lambda x: torch.ones_like(x[..., 0]),
+                kappa=lambda x: torch.full_like(x[..., 0], POISSON["kappa"]),
+                ess_bdr=POISSON["ess_bdr"], rel_tol=POISSON["rel_tol"],
+                max_iter=POISSON["max_iter"], dtype="float32", device=d,
+                precond=pre, cheb_power_iters=power, fes=fes)
+            setup_s = elapsed(t0, d)
+            t1 = time.perf_counter()
+            u, its, _ = s.solve()
+            return u, its, setup_s, elapsed(t1, d), s
+
+        u, its, setup_s, solve_s, s = launch.run_single(body, dev)
+        launches = main_path_launches()
+        u = torch.as_tensor(u, device=dev)
+        res = residual(u)
+        err = float((u.double() - u_ref).abs().max()) / scale
+        held = power > PAR_POWER_DEFAULT
+        print(f"[23] sharded Poisson f32 {pre}, {power} power steps"
+              + (" (JAX's default)" if not held else "")
+              + f", world 1: setup {setup_s:.3f} s, solve {solve_s:.3f} s, {its} "
+              f"CG iterations ([13] serial: {its13}), true relative residual "
+              f"{res:.3e}, max|u - u_ref|/max|u_ref| {err:.3e}; launches "
+              + ", ".join(f"{k} {launches[k]}"
+                          for k in RESTRICTION_KERNELS + ("fused_diffusion",))
+              + ("" if held or err <= 1e-4 else
+                 "; NOT within 1e-4 max|u|: the short power bound (ROADMAP "
+                 "Queue 3)"))
+        check(bool(torch.isfinite(u).all()) and its < POISSON["max_iter"],
+              f"[23] {pre}: finite u and a stop before max_iter")
+        if held:
+            check(err <= 1e-4, f"[23] {pre} ({power} power steps) within 1e-4 "
+                  f"max|u| of the float64 reference")
+        for k in ("gather_sum", "segment_sum", "fused_diffusion"):
+            check(launches[k] > 0, f"[23] {pre} launched {k}")
+        check_coarse_levels(kc, dev, "[23]", s.pmg, s.coarse_qdata,
+                            seed=80 + 10 * i, lor_restr=s.lor_restr)
+        del s, u
+
+
+def phase_par_lattice(dev, theta48):
+    """[24] the z-slab lattice stepper on the 48³ lattice at world size 1,
+    float32, against [9]'s serial θ (``theta48``); its quadrature has p + 2
+    points a direction (the JAX module's), [9]'s p + 1 (quad_extra 0)."""
+    from cardiac_ablation_ecm2_tpu_torch.parallel import cartesian_bioheat as pcb
+    from cardiac_ablation_ecm2_tpu_torch.parallel import launch
+    from cardiac_ablation_ecm2_tpu_torch.utils.config import elapsed
+
+    start_main_path()
+
+    def body(rank, world, d):
+        t0 = time.perf_counter()
+        sim = pcb.setup(48, 48, 48, order=2, lengths=(L, L, L),
+                        q_src=lattice_source, rel_tol=PAR["rel_tol"],
+                        max_iter=PAR["max_iter"], dtype="float32", device=d,
+                        **{k: PAR[k] for k in ("rho_c", "k", "w_cb", "T_a")})
+        setup_s = elapsed(t0, d)
+        T, s_step, host_step = par_steps(sim, timed=True)
+        return sim.gather(T), setup_s, s_step, host_step, sim.cg_iterations
+
+    T, setup_s, s_step, host_step, its = launch.run_single(body, dev)
+    launches = main_path_launches()
+    T = torch.as_tensor(T, device=dev)
+    diff = float((T - 37.0 - theta48).abs().max())
+    rise = float(theta48.max())
+    print(f"[24] z-slab lattice 48^3 f32, world 1: setup {setup_s:.2f} s, s/step "
+          f"{s_step:.6f} (host clock {host_step:.6f}); CG per stage {its}; "
+          f"max|T - 37 - theta_[9]| {diff:.3e} = {diff / rise:.3e} of [9]'s "
+          f"theta_max {rise:.6f}; fused diffusion launches "
+          f"{launches['fused_diffusion']}, restriction kernel launches "
+          f"{sum(launches[k] for k in RESTRICTION_KERNELS)}")
+    check(T.shape == theta48.shape and bool(torch.isfinite(T).all()),
+          "[24] finite T of the lattice's shape")
+    check(diff <= 1e-2 * rise, "[24] within 1e-2 of [9]'s rise (other quadrature)")
+    check(launches["fused_diffusion"] > 0
+          and not any(launches[k] for k in RESTRICTION_KERNELS),
+          "[24] the fused diffusion kernel ran, and no gather (structured)")
+
+
+def phase_dryrun():
+    """``dryrun_multichip`` over every visible card (one spawned rank a
+    card, NCCL)."""
+    from cardiac_ablation_ecm2_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count()
+    out = dryrun_multichip(n)
+    print(f"[dryrun] dryrun_multichip({n}): {out.shape[0]} dofs, T_max "
+          f"{out.max():.6f}, {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
     from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
@@ -2206,6 +2608,8 @@ def main():
     phase_small_end_to_end(dev)
     hex_launches, *hex_run = phase_main(dev, hex_mesh, fes, (t1 - t0, t2 - t1))
     bf16_numbers = phase_modes(dev, fes, hex_run)
+    phase_par_small(dev)
+    par_launches = phase_par_main(kc, dev, hex_mesh, fes)
     mesh_s = t1 - t0
     del fes
 
@@ -2216,12 +2620,15 @@ def main():
     phase_tet_small(dev)
     tet_launches, ell_run = phase_tet_main(dev, mesh, fes, host_s)
     pa_launches = phase_tet_pa(kc, dev, mesh, fes, host_s, ell_run)
+    phase_par_tet(kc, dev, mesh, fes)
     del fes
     phase_ablation_tet(dev, mesh, host_s)
     del mesh
 
     phase_diffusion_kernel(dev)
-    phase_lattice48(dev)
+    _, theta48 = phase_lattice48(dev)
+    phase_par_lattice(dev, theta48)
+    del theta48
     op, masked_launches = phase_masked(dev)
     err, fd_numbers = check_operator_diffusion("[8]", "masked n=126 K_qd", op,
                                                timed=True)
@@ -2232,13 +2639,15 @@ def main():
     phase_ablation_small(dev, make_cardiac_hex_mesh(
         16, lengths=(L, L, L / 2), electrode_radius=0.004))
     phase_ablation_main(dev, hex_mesh, mesh_s)
-    phase_poisson(kc, dev, hex_mesh)
-    del hex_mesh
+    _, poisson_ref = phase_poisson(kc, dev, hex_mesh)
+    phase_par_poisson(kc, dev, hex_mesh, poisson_ref)
+    del hex_mesh, poisson_ref
     phase_heat(kc, dev)
     phase_entry(dev)
     bp_launches, bp_numbers = phase_bp(kc, dev)
     phase_elasticity(kc, dev)
     phase_gmres(kc, dev)
+    phase_dryrun()
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # the restriction's kernels at their hex main-path shapes, float32: the
@@ -2249,6 +2658,7 @@ def main():
             "segment_sum": "E->L (nd,ne) float32"}
     restriction = [
         dict(name=k, route="cuda", **KERNELS[k], launches=hex_launches[k],
+             parallel_launches=par_launches[k],
              max_abs_err=kc.max_abs_err[k], bound_by="bytes",
              **{f: kc.times[label][f]
                 for f in ("ms", "plain_ms", "bound_ms", "library_ms")})
@@ -2288,7 +2698,8 @@ def main():
              bound_by="bytes", library_ms=ell_numbers["library_ms"],
              bp_launches=bp_launches["ell_spmv"], **bp_numbers),
         dict(name="fused_diffusion", route="cuda", **KERNELS["fused_diffusion"],
-             launches=masked_launches["fused_diffusion"], **fd_numbers,
+             launches=masked_launches["fused_diffusion"],
+             parallel_launches=par_launches["fused_diffusion"], **fd_numbers,
              **bf16_numbers),
     ] + [dict(name=k, route="cuda", **KERNELS[k], **probe_numbers[k],
               measures=PROBE_MEASURES) for k in PROBE_KERNELS]}))

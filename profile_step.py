@@ -3,14 +3,17 @@
 print where the device time goes.
 
     python3 profile_step.py [hex126] [masked126] [lattice48] [tet66] [tetpa66]
-                            [poisson126] [chebyshev126] [ex2]
+                            [par126] [poisson126] [chebyshev126] [ex2]
 
 Each path is set up as ``chip_smoke.py`` sets it up (float32, order 2,
 quad_extra 0, θ form, rel_tol 1e-5): ``hex126`` the generic cardiac-hex
 path [4], ``masked126`` the masked cardiac-hex lattice [10], ``lattice48``
 bench.py's default 48³ lattice [9], ``tet66`` the assembled-ELL cardiac
 tet path [7], ``tetpa66`` the partial-assembly tet path [16] (the affine
-apply).  After one warm-up step, the
+apply), ``par126`` the sharded step of ``parallel/bioheat`` at world size 1
+over NCCL on the [4] mesh ([22b]: T form, Jacobi; its ranges are the mass
+einsums and the restriction in both directions, and the NCCL kernels of
+its ``all_reduce``d dots are summed beside the port's).  After one warm-up step, the
 profiler runs through one more step (its own warm-up, not recorded, so the
 tracer is steady before the traced step's first launch) and then traces
 one step, with a ``record_function`` range around each layer (the
@@ -77,6 +80,7 @@ LAYERS = {}      # range name -> patched (owner, attribute)
 STAGE = "stage apply"                 # one CG apply: restriction + lane-major
 RESIDUAL = "residual (K + M_w)T"      # restriction, diffusion kernel, mass
 PLANE = "ELL stage plane"             # c0·w0 + c1·w1, once per solve
+MASS = "mass apply (einsum)"          # ops/mass.apply
 
 
 def _wrap(owner, attr, name):
@@ -113,7 +117,7 @@ def instrument():
     _wrap(BioheatOperator, "_A_apply", RESIDUAL)
     _wrap(lanemajor, "mass_diffusion_apply", "lane-major apply")
     _wrap(lanemajor, "affine_mass_diffusion_apply", "affine apply")
-    _wrap(mass, "apply", "mass apply (einsum)")
+    _wrap(mass, "apply", MASS)
     _wrap(MultiELLPair, "combined", PLANE)
     for cls in (StructuredRestriction, ElementRestriction):
         for attr in ("mult", "mult_t"):
@@ -206,15 +210,50 @@ def trace(path, dev):
     from cardiac_ablation_ecm2_tpu_torch.linalg import ode
     from cardiac_ablation_ecm2_tpu_torch.models import bioheat
 
+    if path == "par126":
+        return trace_par(dev)
     op = build(path, dev)
     step = bioheat.make_stepper(op, ode.select("sdirk33"))
-    T, t = torch.zeros(op.fes.ndof, dtype=op.dtype, device=dev), 0.0
+    T = torch.zeros(op.fes.ndof, dtype=op.dtype, device=dev)
+    trace_step(path, step, T, op.fes.ndof, op.cg_iterations,
+               (STAGE, RESIDUAL, PLANE))
+    del op, T
+    torch.cuda.empty_cache()
+
+
+def trace_par(dev):
+    """``par126``: the sharded step ([22b]) at world size 1 over NCCL."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
+    from cardiac_ablation_ecm2_tpu_torch.parallel import bioheat as pbio
+    from cardiac_ablation_ecm2_tpu_torch.parallel import launch
+
+    fes = FESpace(make_cardiac_hex_mesh(126, lengths=(cs.L, cs.L, cs.L / 2),
+                                        electrode_radius=0.004), 2)
+
+    def body(rank, world, d):
+        sim = pbio.setup(fes.mesh, order=2, q_src=cs.dress_source,
+                         dtype="float32", device=d, fes=fes, **cs.PAR)
+        trace_step("par126", sim.step, sim.T0, fes.ndof, sim.cg_iterations,
+                   (MASS,))
+
+    launch.run_single(body, dev)
+    torch.cuda.empty_cache()
+
+
+def trace_step(label, step, T, ndof, cg_iterations, top):
+    """One warm-up step, one the profiler warms up on, one traced step
+    ``step(T, t, dt)``; prints its device time by layer and kernel.  ``top``
+    names the ranges that nest in no other range and hold none of the
+    port's kernels: the rest of the device time is what they, the port's
+    kernels and the NCCL kernels leave."""
+    t = 0.0
     T, t = step(T, t, 0.25)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         T, t = step(T, t, 0.25)              # the profiler's warm-up
-        n_its = len(op.cg_iterations)
+        n_its = len(cg_iterations)
         cs.start_main_path()
         prof.step()
         h0 = time.perf_counter()
@@ -224,10 +263,11 @@ def trace(path, dev):
         wall_us = (time.perf_counter() - h0) * 1e6
         launches = cs.main_path_launches()
         prof.step()
-    its = op.cg_iterations[n_its:]
+    its = cg_iterations[n_its:]
     names = list(dict.fromkeys(("step", STAGE, RESIDUAL, PLANE, *LAYERS)))
     ranges = {n: [0.0, 0] for n in names}      # device µs, calls
     ported = {}                                # port kernel -> [µs, launches]
+    nccl = [0.0, 0]                            # NCCL kernels: µs, launches
     for e in prof.events():
         if e.device_type == DeviceType.CPU and e.key in ranges:
             ranges[e.key][0] += _device_us(e)
@@ -236,22 +276,25 @@ def trace(path, dev):
             k = ported.setdefault(_port_kernel(e.key), [0.0, 0])
             k[0] += e.time_range.end - e.time_range.start
             k[1] += 1
+        elif _on_device(e) and "nccl" in e.key.lower():
+            nccl[0] += e.time_range.end - e.time_range.start
+            nccl[1] += 1
     for name, n in launches.items():
         traced = ported.get(name, [0.0, 0])[1]
-        cs.check(traced == n, f"{path}: the trace holds {traced} of the step's "
+        cs.check(traced == n, f"{label}: the trace holds {traced} of the step's "
                  f"{n} {name} launches")
     busy = _busy_us(prof)
     total = max(busy, 1e-9)
-    print(f"== {path}: {op.fes.ndof} dofs, CG iterations {its}; step wall "
+    print(f"== {label}: {ndof} dofs, CG iterations {its}; step wall "
           f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms (idle "
           f"share {1 - busy / wall_us:.1%}); PyTorch operators in the step "
           f"range {ranges['step'][0] / 1e3:.3f} ms, the port's kernels "
           f"{sum(k[0] for k in ported.values()) / 1e3:.3f} ms; shares of "
           f"busy time:")
-    rest = total
+    rest = total - nccl[0]
     for name in names[1:]:
         us, calls = ranges[name]
-        if name in (STAGE, RESIDUAL, PLANE):
+        if name in top:
             rest -= us
         print(f"  {name:28s} {us / 1e3:9.3f} ms  {us / total:6.1%}  "
               f"{calls:4d} calls")
@@ -259,6 +302,8 @@ def trace(path, dev):
         rest -= us
         print(f"  kernel {name:21s} {us / 1e3:9.3f} ms  {us / total:6.1%}  "
               f"{n:4d} launches")
+    print(f"  {'NCCL kernels (all_reduce)':28s} {nccl[0] / 1e3:9.3f} ms  "
+          f"{nccl[0] / total:6.1%}  {nccl[1]:4d} launches")
     print(f"  {'other (CG vectors, dots)':28s} {rest / 1e3:9.3f} ms  "
           f"{rest / total:6.1%}")
     restr = [ported.get(k, [0.0, 0]) for k in cs.RESTRICTION_KERNELS]
@@ -269,8 +314,6 @@ def trace(path, dev):
     print("  top kernels (device ms, calls):")
     for e in kernels[:10]:
         print(f"    {_device_us(e) / 1e3:9.3f}  {e.count:5d}  {e.key[:90]}")
-    del op, T
-    torch.cuda.empty_cache()
 
 
 class Spans:

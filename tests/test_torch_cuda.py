@@ -11,7 +11,8 @@ on CUDA equal to the CPU, the LOR operator at the [4] mesh's size
 equal to a plain composition, and the operator layer (single-plane ELL
 operators with rows 729 wide, the order-4 restrictions, PA forms with
 convection, boundary and vector terms, GMRES, the BP harness, elasticity)
-on CUDA equal to the CPU or bitwise to plain.
+on CUDA equal to the CPU or bitwise to plain, and the sharded bioheat
+step at world size 1 over NCCL equal to world size 1 over gloo.
 Needs an NVIDIA GPU and nvcc; skips without a GPU.  This file imports no
 JAX, so it also runs where JAX is not installed:
 
@@ -660,3 +661,40 @@ def test_operator_layer_cuda_equals_cpu(cuda):
            for d in (cuda, "cpu")]
     assert res[0].iterations == res[1].iterations
     assert rel(res[0].u, res[1].u) <= 1e-10
+
+
+def _sharded_step(rank, world, dev):
+    """Two sharded SDIRK33 steps on the cardiac hex mesh n=6, float64."""
+    from cardiac_ablation_ecm2_tpu_torch.parallel import bioheat as pbio
+
+    L = 0.04
+
+    def src(x):
+        r2 = (x[..., 0] - L / 2) ** 2 + (x[..., 1] - L / 2) ** 2 + (x[..., 2] - L / 4) ** 2
+        return 2e7 * torch.exp(-r2 / (2 * 0.003 ** 2))
+
+    sim = pbio.setup(make_cardiac_hex_mesh(6, lengths=(L, L, L / 2),
+                                           electrode_radius=0.004),
+                     order=2, q_src=src, ess_bdr=[1, 2, 3, 4, 5, 6],
+                     rel_tol=1e-10, dtype="float64", device=dev)
+    T, t = sim.T0, 0.0
+    for _ in range(2):
+        T, t = sim.step(T, t, 0.25)
+    return torch.as_tensor(sim.gather(T)), list(sim.cg_iterations)
+
+
+def test_sharded_world1_nccl_equals_gloo(cuda):
+    """The sharded bioheat step at world size 1 over NCCL on the card (its
+    restriction kernels and the fused diffusion apply) against world size
+    1 over gloo on the CPU: within 1e-10, equal CG counts."""
+    from cardiac_ablation_ecm2_tpu_torch.parallel import launch
+
+    before = [bg.gather_sum.launches, bg.segment_sum.launches,
+              fd.diffusion_apply.launches]
+    Tg, itg = launch.run_single(_sharded_step, None)
+    after = [bg.gather_sum.launches, bg.segment_sum.launches,
+             fd.diffusion_apply.launches]
+    assert all(a > b for a, b in zip(after, before))
+    Tc, itc = launch.run_single(_sharded_step, "cpu")
+    assert itg == itc
+    assert _rel(Tg - 37.0, Tc - 37.0) <= 1e-10
