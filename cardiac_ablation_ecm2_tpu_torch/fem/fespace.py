@@ -1,4 +1,5 @@
-"""H1 finite element space: global dof enumeration on a hex or tet mesh
+"""H1 finite element space: global dof enumeration on a quad, triangle, hex
+or tet mesh
 (numpy copy of ``FESpace``, ``element_node_coords`` and ``essential_dofs``
 from ``cardiac_ablation_ecm2_tpu/fem/fespace.py``, tensor and simplex
 geometries, scalar or with ``vdim`` components ordered byNODES).
@@ -32,11 +33,21 @@ from ..mesh.mesh import Mesh
 from .basis import (
     DofToQuad,
     h1_nodes,
+    h1_nodes_1d,
+    lagrange_matrices,
     lattice_multi_index,
     make_dof_to_quad,
     simplex_basis_matrices,
 )
-from .geometry import DIMENSION, EDGES, FACES, NUM_VERTS, REF_VERTS, Geometry
+from .geometry import (
+    DIMENSION,
+    EDGES,
+    FACES,
+    IS_TENSOR,
+    NUM_VERTS,
+    REF_VERTS,
+    Geometry,
+)
 
 _VERT, _EDGE, _FACE, _CELL = 0, 1, 2, 3
 # packed key layout: [k0, k1, k2, k3, meta] with
@@ -286,13 +297,39 @@ class FESpace:
 
 def element_node_coords(mesh: Mesh, p: int) -> np.ndarray:
     """Physical coordinates of the order-p lattice nodes of every element,
-    (ne, nd, sdim), through the P1 (simplex) or multilinear Q1 vertex map."""
+    (ne, nd, sdim): the curved ``mesh.nodes`` (evaluated at the order-p
+    lattice when their order differs), else the P1 (simplex) or
+    multilinear Q1 vertex map.  Not memoised: every call reads the mesh's
+    current arrays."""
     ref = h1_nodes(mesh.geom, p)                      # (nd, dim)
+    if mesh.nodes is not None:
+        if mesh.nodes_order == p:
+            return mesh.nodes
+        B = _eval_volume_basis(mesh.geom, mesh.nodes_order,
+                               ref.astype(np.float64))
+        return _batched_eval(B, mesh.nodes)
     if mesh.geom in (Geometry.TRIANGLE, Geometry.TETRAHEDRON):
         B, _ = simplex_basis_matrices(mesh.geom, 1, ref)   # (nd, nv)
     else:
         B = _q1_eval_matrix(mesh.geom, ref)
     return _batched_eval(B, mesh.vertices[mesh.elements])
+
+
+def _eval_volume_basis(geom: Geometry, p: int, pts: np.ndarray) -> np.ndarray:
+    """The order-p nodal volume basis at reference points → (npts, nd)
+    (the port's copy of ``fem/faces._eval_volume_basis``)."""
+    if IS_TENSOR.get(geom, False):
+        x1 = h1_nodes_1d(p)
+        dim = DIMENSION[geom]
+        per = [lagrange_matrices(x1, pts[:, d])[0] for d in range(dim)]
+        B = per[0]
+        if dim >= 2:
+            B = np.einsum("qi,qj->qji", per[0], per[1]).reshape(len(pts), -1)
+        if dim == 3:
+            B = np.einsum("qi,qj,qk->qkji", per[0], per[1], per[2]).reshape(
+                len(pts), -1)
+        return B
+    return simplex_basis_matrices(geom, p, pts)[0]
 
 
 def _batched_eval(B: np.ndarray, V: np.ndarray) -> np.ndarray:

@@ -1,5 +1,6 @@
-"""Polynomial multigrid (``MGLevel``, ``Multigrid`` and ``make_p_multigrid``
-of ``cardiac_ablation_ecm2_tpu/linalg/multigrid.py``; MFEM's ``Multigrid``
+"""Polynomial and geometric multigrid (``MGLevel``, ``Multigrid``,
+``make_p_multigrid`` and ``make_h_multigrid`` of
+``cardiac_ablation_ecm2_tpu/linalg/multigrid.py``; MFEM's ``Multigrid``
 over a space hierarchy with Chebyshev-smoothed levels, the ex26 pattern).
 
 A hierarchy is a list of levels, coarsest first; each holds a matrix-free
@@ -112,5 +113,35 @@ def make_p_multigrid(
             levels.append(MGLevel(op.mult, sm, None, None, ess))
         else:
             tr = PTransfer(spaces[i - 1], f, dtype=dtype, device=device)
+            levels.append(MGLevel(op.mult, sm, tr.prolongate, tr.restrict_t, ess))
+    return Multigrid(levels=levels)
+
+
+def make_h_multigrid(
+    meshes: Sequence,
+    fes_factory: Callable,
+    operator_factory: Callable,
+    smoother_order: int = 3,
+    ess_factory: Optional[Callable] = None,
+    dtype=None,
+    device=None,
+) -> Multigrid:
+    """h-MG over a uniform-refinement mesh hierarchy, coarse → fine:
+    ``fes_factory(mesh)`` → space, ``operator_factory(fes)`` → an object
+    with ``mult`` and ``diagonal`` on ``device``; the levels are joined by
+    ``fem/transfer.HTransfer``."""
+    from ..fem.transfer import HTransfer
+
+    device = resolve_device(device)
+    spaces = [fes_factory(m) for m in meshes]
+    ops = [operator_factory(f) for f in spaces]
+    levels: List[MGLevel] = []
+    for i, (f, op) in enumerate(zip(spaces, ops)):
+        sm = chebyshev(op.mult, op.diagonal(), order=smoother_order)
+        ess = ess_tensor(ess_factory(f), device) if ess_factory else None
+        if i == 0:
+            levels.append(MGLevel(op.mult, sm, None, None, ess))
+        else:
+            tr = HTransfer(spaces[i - 1], f, dtype=dtype, device=device)
             levels.append(MGLevel(op.mult, sm, tr.prolongate, tr.restrict_t, ess))
     return Multigrid(levels=levels)

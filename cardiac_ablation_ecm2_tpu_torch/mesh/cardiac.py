@@ -250,3 +250,22 @@ def make_cardiac_hex_lattice(
         bdr_attributes=m.bdr_attributes,
     )
     return mesh_full, keep, tuple(int(v) for v in ns)
+
+
+def rf_source_q(center, sigma: float = 3.0, power: float = 5e6):
+    """Gaussian SAR-like volumetric source [W/m³] centred at the electrode
+    tip, the benchmark's stand-in for the coupled RF Joule term: a callable
+    of physical points, torch tensors (on their device and dtype) or numpy
+    arrays, (..., sdim) → (...)."""
+    c = np.asarray(center, dtype=np.float64)
+
+    def q(x):
+        if isinstance(x, np.ndarray):
+            r2 = ((x - c) ** 2).sum(axis=-1)
+            return power * np.exp(-r2 / (2.0 * sigma ** 2))
+        import torch
+
+        r2 = ((x - torch.as_tensor(c, dtype=x.dtype, device=x.device)) ** 2).sum(-1)
+        return power * torch.exp(-r2 / (2.0 * sigma ** 2))
+
+    return q

@@ -29,6 +29,7 @@ import os
 import torch
 
 from ..fem.quadinterp import DeviceBasis, eval_grad, eval_grad_t
+from .lanemajor import sym_flux
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "fused_diffusion.cu")
@@ -59,18 +60,15 @@ def build() -> ctypes.CDLL:
 
 
 def apply_packed(qd: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Packed symmetric D·g; qd (6, ne|1, nq), g (ne, nq, 3)."""
-    gx, gy, gz = g[..., 0], g[..., 1], g[..., 2]
-    Dx = qd[0] * gx + qd[3] * gy + qd[4] * gz
-    Dy = qd[3] * gx + qd[1] * gy + qd[5] * gz
-    Dz = qd[4] * gx + qd[5] * gy + qd[2] * gz
-    return torch.stack([Dx, Dy, Dz], dim=-1)
+    """Packed symmetric D·g; qd (3|6, ne|1, nq), g (ne, nq, 2|3)."""
+    return torch.stack(sym_flux(qd, g.unbind(-1)), dim=-1)
 
 
 def diffusion_apply_plain(db: DeviceBasis, qdata: torch.Tensor,
                           e: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version, on any device: (ne, nd) → (ne, nd) by the
-    staged einsums of ``fem/quadinterp.py`` (tensor or dense basis)."""
+    staged einsums of ``fem/quadinterp.py`` (tensor or dense basis, 2D or
+    3D packed qdata)."""
     return eval_grad_t(db, apply_packed(qdata, eval_grad(db, e)))
 
 

@@ -1,15 +1,16 @@
 """Lane-major (transposed) full-matrix PA applies (counterpart of
-``cardiac_ablation_ecm2_tpu/ops/lanemajor.py``, 3D).
+``cardiac_ablation_ecm2_tpu/ops/lanemajor.py``, 2D and 3D).
 
 The E-vector is laid out ``(nd, ne)`` and every basis contraction is one
 ``(k·nq, nd) @ (nd, ne)`` matmul with the element axis as the long one.  On
 tensor (hex) bases the full matrices are Kronecker products of the 1D
 ``B1``/``G1`` factors; E-vectors are lex-flat with x fastest, so the matrix
-acting on a flattened ``(k, j, i)`` tensor is ``kron(Fz, Fy, Fx)``.  Dense
-(simplex) bases already are the full matrices ``B (nq, nd)`` and
-``G (nq, nd, 3)``.  Packed symmetric diffusion qdata is
-``[00, 11, 22, 01, 02, 12]``; convection qdata is the pulled-back velocity
-per reference axis (``ops/convection.py``).
+acting on a flattened ``(k, j, i)`` tensor is ``kron(Fz, Fy, Fx)`` (a
+quad's ``(j, i)`` one ``kron(Fy, Fx)``).  Dense (simplex) bases already
+are the full matrices ``B (nq, nd)`` and ``G (nq, nd, dim)``.  Packed
+symmetric diffusion qdata is ``[00, 11, 22, 01, 02, 12]`` in 3D and
+``[00, 11, 01]`` in 2D; convection qdata is the pulled-back velocity per
+reference axis (``ops/convection.py``).
 
 The contractions are ``torch.matmul`` in full float32 (TF32 is off, see
 ``utils/config.py``), as the JAX package leaves them to XLA at HIGHEST.
@@ -28,18 +29,22 @@ from ..fem.quadinterp import DeviceBasis
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class LaneBasis:
-    """Full (nq, nd) dofs→quads matrices; ``S`` stacks [B; G₀; G₁; G₂]
-    into one (4·nq, nd) matrix so values and gradients are one matmul,
-    ``SG`` the gradients alone."""
+    """Full (nq, nd) dofs→quads matrices; ``S`` stacks [B; G₀; …] into one
+    ((1+dim)·nq, nd) matrix so values and gradients are one matmul, ``SG``
+    the gradients alone."""
 
     Bf: torch.Tensor                  # (nq, nd)
     G: Tuple[torch.Tensor, ...]       # per reference axis, (nq, nd)
-    S: torch.Tensor                   # (4·nq, nd)
-    SG: torch.Tensor                  # (3·nq, nd)
+    S: torch.Tensor                   # ((1+dim)·nq, nd)
+    SG: torch.Tensor                  # (dim·nq, nd)
 
     @property
     def nq(self) -> int:
         return self.Bf.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return len(self.G)
 
 
 def lane_basis(db: DeviceBasis) -> LaneBasis:
@@ -51,15 +56,19 @@ def lane_basis(db: DeviceBasis) -> LaneBasis:
         B1 = db.B1.cpu().numpy()
         G1 = db.G1.cpu().numpy()
         dev = db.B1.device
-        Bft = torch.as_tensor(np.kron(B1, np.kron(B1, B1)), device=dev)
-        Gt = tuple(torch.as_tensor(g, device=dev) for g in (
-            np.kron(B1, np.kron(B1, G1)),
-            np.kron(B1, np.kron(G1, B1)),
-            np.kron(G1, np.kron(B1, B1)),
-        ))
+        if db.dim == 2:
+            Bf = np.kron(B1, B1)
+            G = (np.kron(B1, G1), np.kron(G1, B1))
+        else:
+            Bf = np.kron(B1, np.kron(B1, B1))
+            G = (np.kron(B1, np.kron(B1, G1)),
+                 np.kron(B1, np.kron(G1, B1)),
+                 np.kron(G1, np.kron(B1, B1)))
+        Bft = torch.as_tensor(Bf, device=dev)
+        Gt = tuple(torch.as_tensor(g, device=dev) for g in G)
     else:
         Bft = db.B
-        Gt = tuple(db.G[:, :, d].contiguous() for d in range(3))
+        Gt = tuple(db.G[:, :, d].contiguous() for d in range(db.dim))
     return LaneBasis(Bf=Bft, G=Gt, S=torch.cat((Bft,) + Gt, dim=0),
                      SG=torch.cat(Gt, dim=0))
 
@@ -67,10 +76,10 @@ def lane_basis(db: DeviceBasis) -> LaneBasis:
 def supports(db: DeviceBasis, qdata=None, kind: str = "",
              max_nd: int = 256) -> bool:
     """Whether the lane-major path applies: full matrices with nd ≤
-    ``max_nd`` (n1³ on a tensor basis, the columns of a dense one), and
-    diffusion qdata in the packed (6, ne, nq) layout."""
+    ``max_nd`` (n1^dim on a tensor basis, the columns of a dense one), and
+    diffusion qdata in the packed (3|6, ne, nq) layout."""
     if db.tensor:
-        nd = db.n1d ** 3
+        nd = db.n1d ** db.dim
     elif db.B is not None and db.G is not None:
         nd = db.B.shape[1]
     else:
@@ -78,7 +87,7 @@ def supports(db: DeviceBasis, qdata=None, kind: str = "",
     if nd > max_nd:
         return False
     if kind == "diffusion" and qdata is not None:
-        return qdata.dim() == 3 and qdata.shape[0] == 6
+        return qdata.dim() == 3 and qdata.shape[0] in (3, 6)
     return True
 
 
@@ -88,12 +97,12 @@ def mass_qT(qd: torch.Tensor) -> torch.Tensor:
 
 
 def diffusion_qT(qd_packed: torch.Tensor) -> torch.Tensor:
-    """Packed symmetric (6, ne, nq) → (6, nq, ne), contiguous."""
+    """Packed symmetric (3|6, ne, nq) → (3|6, nq, ne), contiguous."""
     return qd_packed.permute(0, 2, 1).contiguous()
 
 
 def convection_qT(qd: torch.Tensor) -> torch.Tensor:
-    """(ne, nq, 3) → (3, nq, ne), contiguous."""
+    """(ne, nq, dim) → (dim, nq, ne), contiguous."""
     return qd.permute(2, 1, 0).contiguous()
 
 
@@ -105,13 +114,22 @@ def transpose_qdata(kind: str, qd: torch.Tensor) -> torch.Tensor:
     return _QT[kind](qd)
 
 
-def _sym_flux(qT, g):
-    """Packed-symmetric D·g from the three gradient row blocks."""
+#: the (a, b) of each packed symmetric component, by dimension
+PAIRS = {2: ((0, 0), (1, 1), (0, 1)),
+         3: ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))}
+
+
+def sym_flux(q, g):
+    """Packed-symmetric D·g, elementwise in any layout: ``q`` the 3|6
+    packed components, ``g`` the two or three gradient components."""
+    if len(g) == 2:
+        gx, gy = g
+        return [q[0] * gx + q[2] * gy, q[2] * gx + q[1] * gy]
     gx, gy, gz = g
     return [
-        qT[0] * gx + qT[3] * gy + qT[4] * gz,
-        qT[3] * gx + qT[1] * gy + qT[5] * gz,
-        qT[4] * gx + qT[5] * gy + qT[2] * gz,
+        q[0] * gx + q[3] * gy + q[4] * gz,
+        q[3] * gx + q[1] * gy + q[5] * gz,
+        q[4] * gx + q[5] * gy + q[2] * gz,
     ]
 
 
@@ -122,21 +140,21 @@ def mass_apply(lb: LaneBasis, qT: torch.Tensor, eT: torch.Tensor) -> torch.Tenso
 
 def diffusion_apply(lb: LaneBasis, qT: torch.Tensor,
                     eT: torch.Tensor) -> torch.Tensor:
-    """Gᵀ (D ∘ (G u)), packed-symmetric ``qT`` (6, nq, ne|1): one stacked
-    (3·nq × nd) matmul each way."""
+    """Gᵀ (D ∘ (G u)), packed-symmetric ``qT`` (3|6, nq, ne|1): one stacked
+    (dim·nq × nd) matmul each way."""
     t = lb.SG @ eT
     nq = lb.nq
-    D = _sym_flux(qT, [t[d * nq:(d + 1) * nq] for d in range(3)])
+    D = sym_flux(qT, [t[d * nq:(d + 1) * nq] for d in range(lb.dim)])
     return lb.SG.T @ torch.cat(D, dim=0)
 
 
 def convection_apply(lb: LaneBasis, qT: torch.Tensor,
                      eT: torch.Tensor) -> torch.Tensor:
-    """Bᵀ (q · (G u)), ``qT`` (3, nq, ne)."""
+    """Bᵀ (q · (G u)), ``qT`` (dim, nq, ne)."""
     t = lb.SG @ eT
     nq = lb.nq
     s = qT[0] * t[:nq]
-    for d in range(1, 3):
+    for d in range(1, lb.dim):
         s = s + qT[d] * t[d * nq:(d + 1) * nq]
     return lb.Bf.T @ s
 
@@ -150,12 +168,12 @@ def mass_diffusion_apply(lb: LaneBasis, qmT: torch.Tensor, qdT: torch.Tensor,
     """Fused (M + γ K) v on (nd, ne) E-vectors: one stacked matmul
     evaluates values and gradients, one transposed stacked matmul
     accumulates; γ is folded into the flux.  ``qmT`` (nq, ne), ``qdT``
-    (6, nq, ne)."""
+    (3|6, nq, ne)."""
     t = lb.S @ eT
     nq = lb.nq
     bu = t[:nq]
-    g = [t[(1 + d) * nq:(2 + d) * nq] for d in range(3)]
-    D = _sym_flux(qdT, g)
+    g = [t[(1 + d) * nq:(2 + d) * nq] for d in range(lb.dim)]
+    D = sym_flux(qdT, g)
     if gamma is not None:
         D = [gamma * d for d in D]
     return lb.S.T @ torch.cat([qmT * bu] + D, dim=0)
@@ -190,7 +208,7 @@ def affine_ops(db: DeviceBasis, lb: LaneBasis) -> AffineOps:
     W = db.W.cpu().double().numpy()
     Mhat = Bf.T @ (W[:, None] * Bf)
     Khat = []
-    for a, b in [(0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2)]:
+    for a, b in PAIRS[lb.dim]:
         K = G[a].T @ (W[:, None] * G[b])
         if a != b:
             K = K + K.T
@@ -224,7 +242,7 @@ def _scaled_rows(mats, scales, eT):
 def affine_mass_diffusion_apply(af: AffineOps, dm, dk, eT,
                                 gamma=None) -> torch.Tensor:
     """Fused (M + γ K) v: ``dm`` (ne,) mass factors (γ already folded in by
-    the caller where needed), ``dk`` (6, ne) diffusion factors."""
+    the caller where needed), ``dk`` (3|6, ne) diffusion factors."""
     scales = [dm] + [dk[c] if gamma is None else gamma * dk[c]
                      for c in range(dk.shape[0])]
     return _scaled_rows((af.Mhat,) + af.Khat, scales, eT)
@@ -238,13 +256,13 @@ def affine_mass_apply(af: AffineOps, d: torch.Tensor,
 
 def affine_diffusion_apply(af: AffineOps, d: torch.Tensor,
                            eT: torch.Tensor) -> torch.Tensor:
-    """Σ_c K̂_c @ (d_c ∘ eT) as one stacked matmul; ``d`` is (6, ne|1)."""
+    """Σ_c K̂_c @ (d_c ∘ eT) as one stacked matmul; ``d`` is (3|6, ne|1)."""
     return _scaled_rows(af.Khat, [d[c] for c in range(d.shape[0])], eT)
 
 
 def affine_convection_apply(af: AffineOps, d: torch.Tensor,
                             eT: torch.Tensor) -> torch.Tensor:
-    """Σ_d Ĉ_d @ (d_d ∘ eT); ``d`` is (3, ne|1)."""
+    """Σ_d Ĉ_d @ (d_d ∘ eT); ``d`` is (dim, ne|1)."""
     return _scaled_rows(af.Chat, [d[c] for c in range(d.shape[0])], eT)
 
 

@@ -271,9 +271,44 @@ Phases, in order; any failure raises and the exit code is non-zero:
 24. The z-slab lattice stepper (``parallel/cartesian_bioheat``) on the 48³
    lattice (after [9]): s/step, CG, T against [9]'s θ (within 1e-2 of its
    rise: its quadrature has p + 2 points a direction, [9]'s p + 1), the
-   fused diffusion kernel and no gather launched.  Last,
-   ``dryrun_multichip(torch.cuda.device_count())``: one spawned rank a
-   card over NCCL.
+   fused diffusion kernel and no gather launched.
+25. h-multigrid Poisson on a refined cardiac hierarchy: −Δu = 1, u = 0 on
+   the boundary, on the cardiac hex mesh n=32 refined twice (16,305 →
+   130,440 → 1,043,520 hexes, children numbered o·ne_c + e), order 2
+   (about 8.5M dofs on the fine level), float32, rel_tol 1e-5: PCG with
+   ``make_h_multigrid``'s Chebyshev smoothers (20 power steps; printed,
+   flagged where the bound falls short), then with the levels rebuilt
+   from the same ``HTransfer``s at 60 power steps, and Jacobi-PCG: setup
+   and solve seconds, CG counts, peak memory, the true relative residual
+   (float64 evaluation); the 60-step solution held within 1e-3 max|u| of
+   Jacobi's in under a fifth of its iterations.  After the launch counts,
+   every level's restriction bitwise, and the fine level's round trip
+   timed beside [2]'s n=126 one.
+26. ex1 in 2D, float64, rel_tol 1e-10: n=16 on the card against the CPU
+   (quads, h-MG, triangles, curved quads; 1e-10, equal CG counts); then
+   1024² quads at order 2 (4,198,401 dofs) with Jacobi-PCG and with h-MG
+   over 64² refined four times, 1024² triangles and the quads curved by a
+   smooth map of the square at geometry order 2, with Jacobi-PCG: each
+   true residual ≤ 1e-6 (CG stops on √(r, z)), (b, u) of the two quad
+   runs within 1e-8 and of
+   the triangles and curved quads within 1e-6; each fine restriction
+   bitwise after its run.
+27. ``parallel/refine.refine_uniform`` at world size 1 over NCCL: [25]'s
+   130,440-hex order-2 ``ParFESpace`` to 1,043,520 hexes; the rank's
+   prolongation of a seeded float32 field within 1e-6 max|u| of the
+   serial ``HTransfer`` (an average over the written element slots
+   against ``inv_mult_f``), then the rank's fine local restriction
+   bitwise.
+28. The five torch example programs (``cardiac_ablation_ecm2_tpu_torch/
+   examples``: ex1, ex2, ex16, ex26, the ablation demo) at their defaults
+   on the card, and ex16 on ``inline-hex-8`` (the defaults are 2D and the
+   demo's cube is affine, so only hexes reach the fused diffusion
+   kernel), each its ``main`` in a subprocess, all six together: exit 0
+   and its last line; then the restriction at their spaces' shapes and
+   the fused diffusion kernel at ex16 hex-8's, against plain.
+
+Last, ``dryrun_multichip(torch.cuda.device_count())``: one spawned rank a
+card over NCCL.
 
 The last two lines of standard output are one JSON object describing the
 kernels and one JSON object with the device.  The ``gather_sum``,
@@ -295,7 +330,13 @@ summed).  The ``gather_sum`` entry's ``ms`` is its element-major L→E; its
 ``round_trip_*`` fields are the hex
 CG apply's restriction round trip (``mult_t`` + ``mult_transpose_t``),
 which that entry's ``ms`` measured before the (nd, ne) directions had
-kernels of their own.
+kernels of their own.  Every restriction entry carries ``hmg_launches``
+([25]'s default h-MG run, setup and solve), ``d2_launches`` ([26]'s four
+full-size solves), ``refine_launches`` ([27]) and ``example_launches``
+([28], the six example runs summed); the ``gather_transpose`` and
+``segment_sum`` entries ``refined_*`` fields (float32, [25]'s refined fine
+level), the ``gather_sum`` entry ``refined_round_trip_*``; the
+``fused_diffusion`` entry the same launch fields.
 """
 
 from __future__ import annotations
@@ -2573,6 +2614,510 @@ def phase_par_lattice(dev, theta48):
           "[24] the fused diffusion kernel ran, and no gather (structured)")
 
 
+# ----------------------------------------------------------------------------
+# [25]-[28]: the mesh core (refinement, h-multigrid, 2D forms, the examples)
+# ----------------------------------------------------------------------------
+
+#: [25]: float32 PCG as [13]; the fine level's Jacobi-PCG needs ~600 steps
+HMG = dict(rel_tol=1e-5, max_iter=5000)
+#: make_h_multigrid's smoothers take the JAX package's 20 power steps; the
+#: held run rebuilds them from the same transfers with 60
+HMG_POWER = 60
+#: [26]: ex1's rel_tol in float64; Jacobi-PCG needs ~3,600 steps at 1024²
+#: (111, 224, 450 at 32², 64², 128² on the CPU)
+D2 = dict(rel_tol=1e-10, max_iter=50_000)
+
+
+def constrained_diffusion(fes, dev, dtype):
+    """−Δ on ``fes`` with u = 0 on every boundary attribute (PA, the
+    lane-major apply), wrapped as the constrained operator."""
+    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
+    from cardiac_ablation_ecm2_tpu_torch.ops.operators import ConstrainedOperator
+
+    A = BilinearForm(fes, dev).add_domain_integrator("diffusion").assemble(dtype)
+    return ConstrainedOperator.wrap(A.operator(), fes.essential_dofs(), dtype, dev)
+
+
+def unit_rhs(fes, A, dev, dtype):
+    """b = (1, v), zero at the constrained dofs."""
+    from cardiac_ablation_ecm2_tpu_torch.ops.linearform import domain_lf
+
+    return domain_lf(fes, 1.0, dtype=dtype, device=dev) * A.mask
+
+
+def true_residual(fes, dev):
+    """``u ↦ ‖b − A_c u‖/‖b‖`` of −Δu = 1, u = 0 on the boundary, assembled
+    and applied in float64, and that b."""
+    A = constrained_diffusion(fes, dev, "float64")
+    b = unit_rhs(fes, A, dev, "float64")
+    return (lambda u: float((b - A.mult(u.double())).norm() / b.norm())), b
+
+
+def h_multigrid(meshes, spaces, dev, dtype):
+    """make_h_multigrid over ``meshes`` (coarse → fine) with the constrained
+    diffusion operators (kept by space, so the fine one is the CG's):
+    (multigrid, operators, setup seconds)."""
+    from cardiac_ablation_ecm2_tpu_torch.linalg.multigrid import make_h_multigrid
+    from cardiac_ablation_ecm2_tpu_torch.utils.config import elapsed
+
+    ops = {}
+    by_mesh = {id(m): s for m, s in zip(meshes, spaces)}
+    t0 = time.perf_counter()
+    mg = make_h_multigrid(
+        meshes, lambda m: by_mesh[id(m)],
+        lambda f: ops.setdefault(id(f), constrained_diffusion(f, dev, dtype)),
+        ess_factory=lambda f: f.essential_dofs(), dtype=dtype, device=dev)
+    return mg, [ops[id(s)] for s in spaces], elapsed(t0, dev)
+
+
+def rebuilt_levels(mg, ops, power_iters):
+    """The hierarchy's levels with Chebyshev smoothers rebuilt from
+    ``power_iters`` power steps: the same operators, transfers and
+    essential dofs (no new API: what [22c] does for the sharded p-MG)."""
+    from cardiac_ablation_ecm2_tpu_torch.linalg.multigrid import MGLevel, Multigrid
+    from cardiac_ablation_ecm2_tpu_torch.linalg.smoothers import chebyshev
+
+    return Multigrid(levels=[
+        MGLevel(lv.A, chebyshev(op.mult, op.diagonal(), order=3,
+                                power_iters=power_iters),
+                lv.prolongate, lv.restrict_t, lv.ess)
+        for lv, op in zip(mg.levels, ops)])
+
+
+def pcg(A, b, M, dev, **kw):
+    """(x, iterations, converged, CUDA-synchronized seconds)."""
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.utils.config import elapsed
+
+    t0 = time.perf_counter()
+    x, info = cg(A.mult, b, M=M, **kw)
+    return x, info.iterations, info.converged, elapsed(t0, dev)
+
+
+def phase_hmg(kc, dev):
+    """[25] −Δu = 1, u = 0 on the boundary, on the cardiac hex mesh n=32
+    refined twice (16,305 → 130,440 → 1,043,520 hexes), order 2, float32:
+    h-multigrid PCG with make_h_multigrid's smoothers (20 power steps,
+    printed and flagged where it falls short), then with the levels
+    rebuilt at 60 steps (held), and Jacobi-PCG; after each run's launches
+    are read, every level's restriction bitwise, the fine one timed.
+    Returns the default run's launches, the spaces and the fine transfer
+    for [27], and the fine restriction's round trip."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import restriction_for
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg.smoothers import jacobi
+    from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    meshes = [make_cardiac_hex_mesh(32, lengths=(L, L, L / 2),
+                                    electrode_radius=0.004)]
+    for _ in range(2):
+        meshes.append(meshes[-1].uniform_refinement())
+    mesh_s = time.perf_counter() - t0
+    spaces, space_s = [], []
+    for m in meshes:
+        t0 = time.perf_counter()
+        spaces.append(FESpace(m, 2))
+        space_s.append(time.perf_counter() - t0)
+    fes = spaces[-1]
+    check(tuple(m.ne for m in meshes) == (16_305, 130_440, 1_043_520),
+          "[25] the refined hierarchy's sizes")
+    print(f"[25] cardiac hex n=32 refined twice: {[m.ne for m in meshes]} hexes, "
+          f"order 2: {[s.ndof for s in spaces]} dofs; host: maker and two "
+          f"refinements {mesh_s:.2f} s, FESpaces "
+          + ", ".join(f"{t:.2f}" for t in space_s) + " s")
+    start_main_path()
+    mg, ops, setup_s = h_multigrid(meshes, spaces, dev, "float32")
+    A = ops[-1]
+    b = unit_rhs(fes, A, dev, "float32")
+    x20, its20, conv20, solve20 = pcg(A, b, mg.preconditioner(), dev, **HMG)
+    launches = main_path_launches()
+    peak = torch.cuda.max_memory_allocated()
+    residual, _ = true_residual(fes, dev)
+    runs = {"h-MG, 20 power steps": (x20, its20, conv20, setup_s, solve20, peak,
+                                     launches)}
+    ht = mg.levels[-1].prolongate.__self__
+    start_main_path()
+    t0 = time.perf_counter()
+    mg60 = rebuilt_levels(mg, ops, HMG_POWER)
+    setup60 = time.perf_counter() - t0
+    x60, its60, conv60, solve60 = pcg(A, b, mg60.preconditioner(), dev, **HMG)
+    runs[f"h-MG, {HMG_POWER} power steps"] = (
+        x60, its60, conv60, setup60, solve60, torch.cuda.max_memory_allocated(),
+        main_path_launches())
+    del mg60
+    start_main_path()
+    t0 = time.perf_counter()
+    M = jacobi(A.diagonal())
+    setupj = time.perf_counter() - t0
+    xj, itsj, convj, solvej = pcg(A, b, M, dev, **HMG)
+    runs["Jacobi"] = (xj, itsj, convj, setupj, solvej,
+                      torch.cuda.max_memory_allocated(), main_path_launches())
+    scale = float(xj.abs().max())
+    for name, (x, its, conv, s_set, s_solve, pk, got) in runs.items():
+        d = float((x - xj).abs().max()) / scale
+        held = name != "h-MG, 20 power steps"
+        print(f"[25] {name}: setup {s_set:.3f} s, solve {s_solve:.3f} s "
+              f"({s_solve / max(its, 1) * 1e3:.3f} ms an iteration), {its} CG "
+              f"iterations, converged {conv}, true relative residual (float64 "
+              f"evaluation) {residual(x):.3e}, max|u - u_jacobi|/max|u| {d:.3e}, "
+              f"max_memory_allocated {pk / 2**30:.3f} GiB; launches "
+              + ", ".join(f"{k} {got[k]}" for k in RESTRICTION_KERNELS + (
+                  "fused_diffusion",))
+              + ("" if held or d <= 1e-3 else
+                 "; NOT within 1e-3 max|u| of Jacobi's: the 20-step bound falls "
+                 "short and the smoother is indefinite (ROADMAP Queue 3)"))
+        check(bool(torch.isfinite(x).all()) and x.shape == (fes.ndof,),
+              f"[25] {name}: finite u of the expected shape")
+        if held:
+            check(conv, f"[25] {name} converged")
+            check(d <= 1e-3, f"[25] {name} within 1e-3 max|u| of Jacobi's")
+    check(its60 < itsj / 5, "[25] h-MG (60 steps) under a fifth of Jacobi's count")
+    for k in RESTRICTION_KERNELS:
+        check(launches[k] > 0, f"[25] the h-MG run launched {k}")
+    del runs, x20, x60, xj, M, A, b, ops, mg, residual
+    torch.cuda.empty_cache()
+    for i, s in enumerate(spaces):
+        fine = i == len(spaces) - 1
+        check_restriction(kc, restriction_for(s, dev),
+                          "refined fine " if fine else f"refined level-{i} ",
+                          "[25]", seed=250 + i, timed=fine)
+    r = restriction_for(fes, dev)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    u = torch.randn(fes.ndof, generator=gen, device=dev)
+    trip = [kc.times[f"refined fine {k} float32"]
+            for k in ("L->E (nd,ne)", "E->L (nd,ne)")]
+    rt = {f: sum(t[f] for t in trip) for f in ("ms", "plain_ms", "library_ms",
+                                               "bound_ms")}
+    rt["chained_ms"] = time_ms(lambda: r.mult_transpose_t(r.mult_t(u)))
+    print(f"[25] the refined fine level's restriction round trip (mult_t + "
+          f"mult_transpose_t, {fes.mesh.ne} x 27 into {fes.ndof} dofs), float32: "
+          f"{rt['ms']:.4f} ms (chained {rt['chained_ms']:.4f} ms), plain "
+          f"{rt['plain_ms']:.4f} ms, library {rt['library_ms']:.4f} ms, bound "
+          f"{rt['bound_ms']:.4f} ms; [2]'s n=126 (995,336 x 27, Morton order) "
+          f"{kc.round_trip['round_trip_ms']:.4f} ms (chained "
+          f"{kc.round_trip['round_trip_chained_ms']:.4f} ms)")
+    del u
+    print(f"[25] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, spaces, ht, rt
+
+
+def warp2d(x):
+    """A smooth map of the unit square onto itself (the sides stay put)."""
+    return np.stack([x[..., 0] + 0.08 * np.sin(2 * np.pi * x[..., 1])
+                     * x[..., 0] * (1.0 - x[..., 0]),
+                     x[..., 1] + 0.08 * np.sin(2 * np.pi * x[..., 0])
+                     * x[..., 1] * (1.0 - x[..., 1])], axis=-1)
+
+
+def poisson_2d_cases(n, coarse=None):
+    """[26]'s meshes at n × n: quads, triangles, curved quads (geometry
+    order 2), and the h-MG hierarchy from ``coarse`` × ``coarse`` quads."""
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import (
+        curve_mesh,
+        make_cartesian_2d,
+        make_cartesian_2d_tri,
+    )
+
+    quads = make_cartesian_2d(n, n)
+    hier = [make_cartesian_2d(coarse, coarse)]
+    while hier[-1].ne < quads.ne:
+        hier.append(hier[-1].uniform_refinement())
+    return dict(quad=quads, tri=make_cartesian_2d_tri(n, n),
+                curved=curve_mesh(quads, warp2d, 2)), hier
+
+
+def solve_2d(kind, mesh, dev, fes=None, hier=None, hier_spaces=None):
+    """One [26] solve in float64: Jacobi-PCG through ``models/poisson`` (ex1's
+    path), or h-MG PCG over ``hier``: (space, u, iterations, setup s, solve
+    s)."""
+    from cardiac_ablation_ecm2_tpu_torch.models import poisson
+    from cardiac_ablation_ecm2_tpu_torch.utils.config import elapsed
+
+    if hier is None:
+        r = poisson.solve(mesh, order=2, rhs=1.0, dtype="float64", device=dev,
+                          fes=fes, **D2)
+        check(r.converged, f"[26] {kind} Jacobi-PCG converged")
+        return (r.fes, r.u, r.iterations,
+                r.setup_seconds["operator"] + r.setup_seconds["preconditioner"],
+                r.solve_seconds)
+    mg, ops, setup_s = h_multigrid(hier, hier_spaces, dev, "float64")
+    t0 = time.perf_counter()
+    b = unit_rhs(hier_spaces[-1], ops[-1], dev, "float64")
+    setup_s += elapsed(t0, dev)
+    x, its, conv, solve_s = pcg(ops[-1], b, mg.preconditioner(), dev, **D2)
+    check(conv, f"[26] {kind} h-MG PCG converged")
+    return hier_spaces[-1], x, its, setup_s, solve_s
+
+
+def phase_2d(kc, dev):
+    """[26] ex1 on 2D meshes in float64 at rel_tol 1e-10: first n=16 on the
+    card against the CPU (equal CG counts, 1e-10); then 1024² quads with
+    Jacobi-PCG and with h-MG over 64² refined four times, 1024² triangles
+    and the curved quads with Jacobi-PCG: seconds, counts, the true
+    residual (held ≤ 1e-6) and ∫u = (b, u) across the runs; after each
+    run's launches are read, the restriction of each space it ran on
+    bitwise (every level of the h-MG run).  Returns the
+    launches of the four full-size solves, summed."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import restriction_for
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+
+    t_phase = time.perf_counter()
+    small, hier = poisson_2d_cases(16, coarse=4)
+    for kind in ("quad", "h-MG", "tri", "curved"):
+        outs = []
+        for d in (dev, "cpu"):
+            if kind == "h-MG":
+                outs.append(solve_2d(kind, None, d, hier=hier, hier_spaces=[
+                    FESpace(m, 2) for m in hier]))
+            else:
+                outs.append(solve_2d(kind, small[kind], d))
+        rel = float((outs[0][1].cpu() - outs[1][1]).abs().max()
+                    / outs[1][1].abs().max())
+        print(f"[26] n=16 {kind} f64: card vs CPU rel diff {rel:.3e}, CG "
+              f"{outs[0][2]} vs {outs[1][2]}")
+        check(rel <= 1e-10 and outs[0][2] == outs[1][2],
+              f"[26] n=16 {kind}: card within 1e-10 of the CPU, equal CG counts")
+    t0 = time.perf_counter()
+    full, hier = poisson_2d_cases(1024, coarse=64)
+    mesh_s = time.perf_counter() - t0
+    total = dict.fromkeys(RESTRICTION_KERNELS + ("fused_diffusion",), 0)
+    integrals = {}
+    for kind in ("quad", "h-MG", "tri", "curved"):
+        t0 = time.perf_counter()
+        if kind == "h-MG":
+            spaces = [FESpace(m, 2) for m in hier]
+            fes = spaces[-1]
+        else:
+            spaces, fes = None, FESpace(full[kind], 2)
+        space_s = time.perf_counter() - t0
+        start_main_path()
+        fes, u, its, setup_s, solve_s = solve_2d(
+            kind, full.get(kind), dev, fes=fes, hier=hier if spaces else None,
+            hier_spaces=spaces)
+        got = main_path_launches()
+        peak = torch.cuda.max_memory_allocated()
+        for k in total:
+            total[k] += got[k]
+        residual, b = true_residual(fes, dev)
+        res = residual(u)
+        integrals[kind] = float(b.dot(u))
+        print(f"[26] {kind} 1024^2 order 2 f64: {fes.mesh.ne} elements, {fes.ndof} "
+              f"dofs; host FESpace{'s' if spaces else ''} {space_s:.2f} s; setup "
+              f"{setup_s:.3f} s, solve {solve_s:.3f} s ({solve_s / its * 1e3:.3f} ms "
+              f"an iteration), {its} CG iterations, true relative residual "
+              f"{res:.3e}, (b, u) {integrals[kind]:.12e}, max_memory_allocated "
+              f"{peak / 2**30:.3f} GiB; launches "
+              + ", ".join(f"{k} {got[k]}" for k in total))
+        check(u.shape == (fes.ndof,) and bool(torch.isfinite(u).all()),
+              f"[26] {kind}: finite u of the expected shape")
+        # CG stops on the preconditioned residual √(r, z): ‖b − Au‖/‖b‖
+        # lands above rel_tol by a factor the preconditioner sets
+        check(res <= 1e-6, f"[26] {kind}: true relative residual <= 1e-6")
+        # Jacobi-PCG's applies run the (nd, ne) directions; the h-MG
+        # transfers add the element-major L→E
+        for k in RESTRICTION_KERNELS[int(kind != "h-MG"):]:
+            check(got[k] > 0, f"[26] {kind} launched {k}")
+        if kind == "h-MG":
+            check(its < 100, "[26] h-MG PCG under 100 iterations")
+        del u, residual, b
+        torch.cuda.empty_cache()
+        # every level's map the run gathered on (the curved quads share
+        # the quads' map)
+        if kind == "h-MG":
+            for i, s in enumerate(spaces):
+                check_restriction(kc, restriction_for(s, dev),
+                                  f"2D h-MG level-{i} ({s.mesh.ne} quads) ",
+                                  "[26]", seed=2600 + i)
+        elif kind != "curved":
+            check_restriction(kc, restriction_for(fes, dev), f"2D {kind} ",
+                              "[26]", seed=260 + len(integrals))
+        del fes, spaces
+    rel = {k: abs(v - integrals["quad"]) / abs(integrals["quad"])
+           for k, v in integrals.items() if k != "quad"}
+    print(f"[26] (b, u) = the integral of u against the quads' Jacobi run: "
+          f"h-MG (the same grid, numbered by refinement) {rel['h-MG']:.3e}, "
+          f"triangles {rel['tri']:.3e}, curved quads (the same square) "
+          f"{rel['curved']:.3e}; host meshes {mesh_s:.2f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    check(rel["h-MG"] <= 1e-8, "[26] the quad solutions' (b, u) agree within 1e-8")
+    check(max(rel["tri"], rel["curved"]) <= 1e-6,
+          "[26] the triangles' and the curved quads' (b, u) within 1e-6")
+    return total
+
+
+def phase_prefine(kc, dev, spaces, ht):
+    """[27] parallel/refine.refine_uniform at world size 1 over NCCL: [25]'s
+    130,440-hex order-2 ParFESpace to 1,043,520 hexes, the prolongation of a
+    seeded float32 field against [25]'s serial HTransfer (1e-6 max|u|);
+    then the rank's coarse and fine local restrictions bitwise.  Returns the
+    prolongation's launches."""
+    from cardiac_ablation_ecm2_tpu_torch.parallel import launch, pfespace
+    from cardiac_ablation_ecm2_tpu_torch.parallel.refine import refine_uniform
+    from cardiac_ablation_ecm2_tpu_torch.utils.config import elapsed
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    pf = pfespace.build(spaces[1], 1)
+    pf_f, pt = refine_uniform(pf)
+    host_s = time.perf_counter() - t0
+    check(np.array_equal(pf_f.fes.gather_map, spaces[2].gather_map),
+          "[27] the sharded refinement numbers the fine dofs as [25]'s")
+    check(np.array_equal(pf_f.loc2glob[0], np.arange(spaces[2].ndof)),
+          "[27] world 1: local dofs are global dofs")
+    uc = np.random.default_rng(27).standard_normal(spaces[1].ndof)
+    start_main_path()
+
+    def body(rank, world, d):
+        t0 = time.perf_counter()
+        lt = pt.local(rank, d, "float32")
+        setup_s = elapsed(t0, d)
+        uc_loc = torch.as_tensor(pfespace.scatter_global(pf, uc)[rank],
+                                 dtype=torch.float32, device=d)
+        t0 = time.perf_counter()
+        uf = lt.prolongate(uc_loc)
+        first_s = elapsed(t0, d)
+        t0 = time.perf_counter()
+        again = lt.prolongate(uc_loc)
+        return (uf, again, setup_s, first_s, elapsed(t0, d), lt.coarse.restr,
+                lt.fine.restr)
+
+    uf, again, setup_s, first_s, warm_s, restr_c, restr_f = launch.run_single(
+        body, dev)
+    launches = main_path_launches()
+    serial = ht.prolongate(torch.as_tensor(uc, dtype=torch.float32, device=dev))
+    scale = float(serial.abs().max())
+    err = float((uf[:-1] - serial).abs().max()) / scale
+    print(f"[27] sharded refinement, world 1 over NCCL: {spaces[1].mesh.ne} -> "
+          f"{pf_f.fes.mesh.ne} hexes, {pf_f.nloc} fine local dofs; host tables "
+          f"and refinement {host_s:.2f} s, the rank's transfer {setup_s:.2f} s; "
+          f"prolongation {first_s * 1e3:.3f} ms (counts included), "
+          f"{warm_s * 1e3:.3f} ms again; max|u_par - u_serial|/max|u| {err:.3e}; "
+          f"launches " + ", ".join(f"{k} {launches[k]}" for k in RESTRICTION_KERNELS))
+    check(err <= 1e-6, "[27] the sharded prolongation within 1e-6 of the serial")
+    check(torch.equal(uf, again), "[27] the second prolongation repeats the first")
+    check(float(uf[-1]) == 0.0, "[27] the trash slot reads 0")
+    for k in ("gather_sum", "segment_sum"):
+        check(launches[k] > 0, f"[27] the prolongation launched {k}")
+    del uf, again, serial
+    torch.cuda.empty_cache()
+    check_restriction(kc, restr_c, "sharded coarse local (trash slot included) ",
+                      "[27]", seed=270)
+    check_restriction(kc, restr_f, "sharded refined fine local (trash slot included) ",
+                      "[27]", seed=27)
+    print(f"[27] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+#: [28]: the examples at their defaults, and ex16 on hexes (the examples'
+#: one path to the fused diffusion kernel: the defaults are 2D, and the
+#: ablation demo's cube is affine, so its stiffness takes the collapsed
+#: lane path, as in the JAX package), each through its ``main`` in a
+#: subprocess that then prints its launch counts
+EXAMPLE_RUNS = (("ex1_poisson", ()), ("ex2_elasticity", ()), ("ex16_heat", ()),
+           ("ex26_multigrid", ()), ("ablation_demo", ()),
+           ("ex16_heat", ("-m", "inline-hex-8")))
+EXAMPLE_RUN = """
+import json, sys
+from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
+from cardiac_ablation_ecm2_tpu_torch.ops import fused_diffusion as fd
+import importlib
+importlib.import_module("cardiac_ablation_ecm2_tpu_torch.examples."
+                        + sys.argv[1]).main(sys.argv[2:])
+print("LAUNCHES " + json.dumps(dict(
+    {k: getattr(bg, k).launches for k in ("gather_sum", "gather_transpose",
+                                          "segment_sum")},
+    fused_diffusion=fd.diffusion_apply.launches)))
+"""
+#: the start of each example's last line
+EXAMPLE_LAST = {"ex1_poisson": "ndof=1089  CG iters=",
+               "ex2_elasticity": "ndof=102  CG iters=",
+               "ex16_heat": "t=0.1000  |u|_L2=",
+               "ex26_multigrid": "solutions agree: True",
+               "ablation_demo": "t=  10.0s  Tmax="}
+
+
+def phase_examples(kc, dev):
+    """[28] the five torch example programs on the card at their defaults,
+    and ex16 on hexes, run together as subprocesses: each must exit 0 and
+    print its line; then the restriction kernels at their spaces' shapes
+    and the fused diffusion kernel at ex16 hex-8's, against plain.
+    Returns the launches summed over the six runs."""
+    import os
+    import sys
+
+    from cardiac_ablation_ecm2_tpu_torch.examples.ex2_elasticity import beam_quad
+    from cardiac_ablation_ecm2_tpu_torch.fem.basis import make_dof_to_quad
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import (
+        bdr_restriction_for,
+        restriction_for,
+    )
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.fem.geometry import Geometry
+    from cardiac_ablation_ecm2_tpu_torch.fem.quadinterp import device_basis
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import (
+        make_cartesian_2d,
+        make_cartesian_3d,
+    )
+    from cardiac_ablation_ecm2_tpu_torch.utils.config import Config
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = {" ".join((name,) + args): (name, subprocess.Popen(
+        [sys.executable, "-c", EXAMPLE_RUN, name, *args], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for name, args in EXAMPLE_RUNS}
+    total = dict.fromkeys(RESTRICTION_KERNELS + ("fused_diffusion",), 0)
+    hex_fd = 0
+    for label, (name, p) in procs.items():
+        try:
+            out, err = p.communicate(timeout=300)
+        finally:
+            p.kill()
+        lines = out.strip().splitlines()
+        for line in lines[:-1]:
+            print(f"[28] {label}: {line}")
+        check(p.returncode == 0, f"[28] {label} exits 0 (stderr: {err[-2000:]})")
+        got = json.loads(lines[-1][len("LAUNCHES "):])
+        print(f"[28] {label} launches: " + ", ".join(f"{k} {v}" for k, v in got.items()))
+        check(lines[-2].startswith(EXAMPLE_LAST[name]),
+              f"[28] {label} prints its line")
+        for k in total:
+            total[k] += got[k]
+        if label != name:
+            hex_fd = got["fused_diffusion"]
+    check(hex_fd > 0, "[28] ex16 on hexes launched fused_diffusion")
+    for k in RESTRICTION_KERNELS:
+        check(total[k] > 0, f"[28] the examples launched {k}")
+    quad16 = make_cartesian_2d(16, 16)
+    cube = make_cartesian_3d(6, 6, 6, 0.02, 0.02, 0.02)
+    hex8 = make_cartesian_3d(8, 8, 8)
+    for i, (what, fes) in enumerate((
+            ("ex1/ex16 quad-16 order 2 ", FESpace(quad16, 2)),
+            ("ex26 quad-16 order 4 ", FESpace(quad16, 4)),
+            ("ex26 quad-16 order 1 ", FESpace(quad16, 1)),
+            ("ex2 beam order 2 ", FESpace(beam_quad(), 2, vdim=2)),
+            ("ablation demo 6^3 order 2 ", FESpace(cube, 2)),
+            ("ex16 hex-8 order 2 ", FESpace(hex8, 2)))):
+        check_restriction(kc, restriction_for(fes, dev), what, "[28]", seed=280 + i)
+    fes = FESpace(beam_quad(), 2, vdim=2)
+    check_restriction(kc, bdr_restriction_for(fes, dev), "ex2 beam boundary ",
+                      "[28]", seed=286)
+    rng = np.random.default_rng(28)
+    nq1 = 3 + Config().quad_extra          # the examples' default quadrature
+    for dtype in (torch.float32, torch.float64):
+        db = device_basis(make_dof_to_quad(Geometry.CUBE, 2, nq1), dtype, dev)
+        e = torch.as_tensor(rng.standard_normal((hex8.ne, 27)), dtype=dtype,
+                            device=dev)
+        qd = torch.as_tensor(rng.standard_normal((6, hex8.ne, nq1 ** 3)),
+                             dtype=dtype, device=dev)
+        check_diffusion("ex16 hex-8's shape (random)", db, qd, e, tag="[28]")
+    print(f"[28] phase {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def phase_dryrun():
     """``dryrun_multichip`` over every visible card (one spawned rank a
     card, NCCL)."""
@@ -2647,6 +3192,11 @@ def main():
     bp_launches, bp_numbers = phase_bp(kc, dev)
     phase_elasticity(kc, dev)
     phase_gmres(kc, dev)
+    hmg_launches, spaces, ht, refined_rt = phase_hmg(kc, dev)
+    d2_launches = phase_2d(kc, dev)
+    refine_launches = phase_prefine(kc, dev, spaces, ht)
+    del spaces, ht
+    example_launches = phase_examples(kc, dev)
     phase_dryrun()
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2690,6 +3240,18 @@ def main():
                 entry.update({f"bp_{geom}_o4_{f}": kc.times[label][f]
                               for f in ("ms", "plain_ms", "bound_ms", "library_ms")})
             entry["bp_launches"] = bp_launches[entry["name"]]
+    # the mesh core's paths ([25]-[28]) and the refined fine level's
+    # restriction (1,043,520 x 27, children numbered o*ne_c + e)
+    for entry in restriction:
+        k = entry["name"]
+        entry.update(hmg_launches=hmg_launches[k], d2_launches=d2_launches[k],
+                     refine_launches=refine_launches[k],
+                     example_launches=example_launches[k])
+        if k in bp_rows:
+            entry.update({f"refined_{f}": kc.times[f"refined fine {bp_rows[k]}"][f]
+                          for f in ("ms", "plain_ms", "bound_ms", "library_ms")})
+    restriction[0].update({f"refined_round_trip_{f}": v
+                           for f, v in refined_rt.items()})
     print(json.dumps({"kernels": restriction + [
         dict(name="ell_spmv", route="cuda", **KERNELS["ell_spmv"],
              launches=tet_launches["ell_spmv"],
@@ -2700,7 +3262,9 @@ def main():
         dict(name="fused_diffusion", route="cuda", **KERNELS["fused_diffusion"],
              launches=masked_launches["fused_diffusion"],
              parallel_launches=par_launches["fused_diffusion"], **fd_numbers,
-             **bf16_numbers),
+             **bf16_numbers, hmg_launches=hmg_launches["fused_diffusion"],
+             d2_launches=d2_launches["fused_diffusion"],
+             example_launches=example_launches["fused_diffusion"]),
     ] + [dict(name=k, route="cuda", **KERNELS[k], **probe_numbers[k],
               measures=PROBE_MEASURES) for k in PROBE_KERNELS]}))
     print(json.dumps({"ok": True, "device": {

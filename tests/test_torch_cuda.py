@@ -11,8 +11,11 @@ on CUDA equal to the CPU, the LOR operator at the [4] mesh's size
 equal to a plain composition, and the operator layer (single-plane ELL
 operators with rows 729 wide, the order-4 restrictions, PA forms with
 convection, boundary and vector terms, GMRES, the BP harness, elasticity)
-on CUDA equal to the CPU or bitwise to plain, and the sharded bioheat
-step at world size 1 over NCCL equal to world size 1 over gloo.
+on CUDA equal to the CPU or bitwise to plain, the sharded bioheat
+step at world size 1 over NCCL equal to world size 1 over gloo, and the
+mesh core (2D restrictions bitwise to plain, ``HTransfer``, h-multigrid
+PCG and 2D Poisson on quads, triangles and curved quads) on CUDA equal to
+the CPU.
 Needs an NVIDIA GPU and nvcc; skips without a GPU.  This file imports no
 JAX, so it also runs where JAX is not installed:
 
@@ -698,3 +701,120 @@ def test_sharded_world1_nccl_equals_gloo(cuda):
     Tc, itc = launch.run_single(_sharded_step, "cpu")
     assert itg == itc
     assert _rel(Tg - 37.0, Tc - 37.0) <= 1e-10
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("geom,p", [("quad", 1), ("quad", 2), ("quad", 3),
+                                    ("tri", 1), ("tri", 2), ("tri", 3)])
+def test_2d_restriction_bitwise_equals_plain(cuda, dtype, geom, p):
+    """The 2D maps (quad nd 4/9/16, tri nd 3/6/10) of a refined mesh (its
+    children numbered o·ne_c + e) in every layout, bitwise equal to the
+    plain versions."""
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import (
+        make_cartesian_2d,
+        make_cartesian_2d_tri,
+    )
+
+    make = make_cartesian_2d if geom == "quad" else make_cartesian_2d_tri
+    fes = FESpace(make(9, 7).uniform_refinement(), p)
+    r = ElementRestriction(fes.gather_map, fes.ndof, cuda)
+    assert r.nd == ((p + 1) ** 2 if geom == "quad" else (p + 1) * (p + 2) // 2)
+    gen = torch.Generator(device=cuda).manual_seed(p)
+    u = torch.randn(fes.ndof, generator=gen, device=cuda, dtype=dtype)
+    ue = torch.randn(r.ne * r.nd, generator=gen, device=cuda, dtype=dtype)
+    pairs = [(bg.gather_sum(u, r.g), bg.gather_sum_plain(u, r.g)),
+             (bg.gather_transpose(u, r.gm), bg.gather_transpose_plain(u, r.gm))]
+    for slots in (r.slots, r.slotsT):
+        pairs.append((bg.segment_sum(ue, slots, r.offsets),
+                      bg.segment_sum_plain(ue, slots, r.offsets)))
+    for a, b in pairs:
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def _h_hierarchy(geom):
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import (
+        make_cartesian_2d,
+        make_cartesian_2d_tri,
+    )
+
+    if geom == "hex":
+        coarse = make_cardiac_hex_mesh(3, lengths=(0.04, 0.04, 0.02),
+                                       electrode_radius=0.004)
+    else:
+        coarse = (make_cartesian_2d if geom == "quad" else make_cartesian_2d_tri)(4, 4)
+    return [coarse, coarse.uniform_refinement(), coarse.uniform_refinement(2)]
+
+
+@pytest.mark.parametrize("geom", ["quad", "tri", "hex"])
+def test_htransfer_cuda_equals_cpu(cuda, geom):
+    """HTransfer prolongate and restrict_t in float64 on the card (the
+    restriction kernels) against the CPU, 1e-13."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.transfer import HTransfer
+
+    meshes = _h_hierarchy(geom)[:2]
+    fc, ff = FESpace(meshes[0], 2), FESpace(meshes[1], 2)
+    rng = np.random.default_rng(3)
+    a, b = rng.standard_normal(fc.ndof), rng.standard_normal(ff.ndof)
+    outs = []
+    for d in (cuda, "cpu"):
+        before = bg.segment_sum.launches
+        tr = HTransfer(fc, ff, "float64", d)
+        outs.append((tr.prolongate(torch.as_tensor(a, device=d)),
+                     tr.restrict_t(torch.as_tensor(b, device=d))))
+        if d == cuda:
+            assert bg.segment_sum.launches > before
+    for x, y in zip(*outs):
+        assert _rel(x.cpu(), y) <= 1e-13
+
+
+@pytest.mark.parametrize("geom", ["quad", "hex"])
+def test_h_multigrid_cuda_equals_cpu(cuda, geom):
+    """make_h_multigrid PCG (three levels, order 2, u = 0 on the boundary)
+    in float64 on the card against the CPU: equal CG counts, 1e-10."""
+    from cardiac_ablation_ecm2_tpu_torch.linalg.multigrid import make_h_multigrid
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.ops.linearform import domain_lf
+    from cardiac_ablation_ecm2_tpu_torch.ops.operators import ConstrainedOperator
+
+    meshes = _h_hierarchy(geom)
+    spaces = {id(m): FESpace(m, 2) for m in meshes}
+    runs = []
+    for d in (cuda, "cpu"):
+        def op(f):
+            A = BilinearForm(f, d).add_domain_integrator("diffusion").assemble("float64")
+            return ConstrainedOperator.wrap(A.operator(), f.essential_dofs(),
+                                            "float64", d)
+
+        mg = make_h_multigrid(meshes, lambda m: spaces[id(m)], op,
+                              ess_factory=lambda f: f.essential_dofs(),
+                              dtype="float64", device=d)
+        fes = spaces[id(meshes[-1])]
+        A = op(fes)
+        b = domain_lf(fes, None, dtype="float64", device=d) * A.mask
+        x, info = cg(A.mult, b, M=mg.preconditioner(), rel_tol=1e-10, max_iter=200)
+        assert info.converged
+        runs.append((x, info.iterations))
+    assert runs[0][1] == runs[1][1]
+    assert _rel(runs[0][0].cpu(), runs[1][0]) <= 1e-10
+
+
+def test_2d_poisson_cuda_equals_cpu(cuda, quad_extra_0):
+    """Poisson on quads, triangles and curved quads at order 2 in float64
+    on the card against the CPU: equal CG counts, 1e-10."""
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import (
+        curve_mesh,
+        make_cartesian_2d,
+        make_cartesian_2d_tri,
+    )
+    from cardiac_ablation_ecm2_tpu_torch.models import poisson
+
+    def warp(x):
+        return np.stack([x[..., 0] + 0.05 * np.sin(np.pi * x[..., 1]),
+                         x[..., 1] + 0.05 * np.sin(np.pi * x[..., 0])], axis=-1)
+
+    for mesh in (make_cartesian_2d(16, 16), make_cartesian_2d_tri(16, 16),
+                 curve_mesh(make_cartesian_2d(16, 16), warp, 2)):
+        res = [poisson.solve(mesh, order=2, rel_tol=1e-10, dtype="float64",
+                             device=d) for d in (cuda, "cpu")]
+        assert res[0].iterations == res[1].iterations
+        assert _rel(res[0].u.cpu(), res[1].u) <= 1e-10
