@@ -16,6 +16,16 @@ Both directions run on the ops of ``ops/block_gather.py``:
   list for each E-layout.  Hexes have multiplicity ≤ 8, order-2 tets of
   the cardiac mesh up to 46.  The fixed order and the absence of atomics
   make E→L deterministic.
+
+Every direction is differentiable, through the kernels themselves: the
+L→E gather and the E→L segment-sum over the same map are each other's
+adjoints, so each is a ``torch.autograd.Function`` whose ``backward``
+calls the other direction's Function (a gradient of a gradient, or the
+jvp of a gradient that Newton's tangent is, goes through them again) and
+whose ``jvp`` applies the same linear map to the tangent.  Their
+``forward`` sees plain tensors, so on the card it launches the kernels.
+``torch.func.linearize`` cannot trace them (a ctypes launch reads
+``data_ptr()``); ``torch.func.jvp`` and ``torch.func.grad`` can.
 """
 
 from __future__ import annotations
@@ -56,6 +66,52 @@ def scatter_planes(flat: np.ndarray, ndof: int) -> np.ndarray:
     return planes
 
 
+class _LtoE(torch.autograd.Function):
+    """L→E through the restriction ``r``: (ndof,) → (ne·nd,) flat
+    element-major (``gather_sum``), or (nd, ne) with ``transposed``
+    (``gather_transpose``)."""
+
+    @staticmethod
+    def forward(u, r, transposed):
+        if transposed:
+            return gather_transpose(u, r.gm)
+        return gather_sum(u, r.g)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.r, ctx.transposed = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _EtoL.apply(grad.contiguous().view(-1), ctx.r, ctx.transposed), None, None
+
+    @staticmethod
+    def jvp(ctx, du, _r, _t):
+        return _LtoE.apply(du.contiguous(), ctx.r, ctx.transposed)
+
+
+class _EtoL(torch.autograd.Function):
+    """E→L sum through the restriction ``r``: a flat element-major E-vector
+    (``slots``), or a flat (nd, ne) one with ``transposed`` (``slotsT``),
+    → (ndof,) by ``segment_sum``."""
+
+    @staticmethod
+    def forward(u_e, r, transposed):
+        return segment_sum(u_e, r.slotsT if transposed else r.slots, r.offsets)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.r, ctx.transposed = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _LtoE.apply(grad.contiguous(), ctx.r, ctx.transposed).view(-1), None, None
+
+    @staticmethod
+    def jvp(ctx, du, _r, _t):
+        return _EtoL.apply(du.contiguous(), ctx.r, ctx.transposed)
+
+
 class ElementRestriction:
     """The gather map and the E→L slot lists of one (ne, nd) gather map, on
     one device (``None``: the card)."""
@@ -80,19 +136,19 @@ class ElementRestriction:
 
     def mult(self, u: torch.Tensor) -> torch.Tensor:
         """L→E: (ndof,) → (ne, nd)."""
-        return gather_sum(u, self.g).view(self.ne, self.nd)
+        return _LtoE.apply(u, self, False).view(self.ne, self.nd)
 
     def mult_t(self, u: torch.Tensor) -> torch.Tensor:
         """L→E in the transposed layout: (ndof,) → (nd, ne)."""
-        return gather_transpose(u, self.gm)
+        return _LtoE.apply(u, self, True)
 
     def mult_transpose(self, u_e: torch.Tensor) -> torch.Tensor:
         """E→L sum: (ne, nd) → (ndof,), deterministic."""
-        return segment_sum(u_e.reshape(-1), self.slots, self.offsets)
+        return _EtoL.apply(u_e.reshape(-1), self, False)
 
     def mult_transpose_t(self, u_eT: torch.Tensor) -> torch.Tensor:
         """E→L sum from the transposed layout: (nd, ne) → (ndof,)."""
-        return segment_sum(u_eT.reshape(-1), self.slotsT, self.offsets)
+        return _EtoL.apply(u_eT.reshape(-1), self, True)
 
     def mult_vec(self, u: torch.Tensor, vdim: int) -> torch.Tensor:
         """L→E of a byNODES vector: (vdim·ndof,) → (ne, nd, vdim), one

@@ -10,9 +10,11 @@ the same pipeline on the boundary faces as a mesh of their own, through the
 are byNODES, one E→L sum per component.  Every function runs on
 ``device`` (``None``: the card).
 
-Not ported yet: ``white_noise_lf`` (the JAX PRNG's draws have no torch
-counterpart; it waits for the ``spde`` model) and ``delta_lf`` (it waits
-for ``mesh/point_eval.py``).
+``white_noise_lf`` takes its standard normal draws ``w`` as an argument
+(or a ``torch.Generator`` to draw them): the JAX package draws them from
+``jax.random``, which no torch generator reproduces.
+
+Not ported yet: ``delta_lf`` (it waits for ``mesh/point_eval.py``).
 """
 
 from __future__ import annotations
@@ -228,3 +230,35 @@ def boundary_tangential_lf(fes, vec, bdr_marker=None,
     if bdr_marker is not None:
         q = q * bdr_marker_mask(mesh, bdr_marker, q.dtype, q.device)[:, None]
     return bdr_restriction_for(fes, device).mult_transpose(eval_values_t(db, q))
+
+
+def white_noise_lf(fes, w: Optional[torch.Tensor] = None, num: Optional[int] = None,
+                   generator: Optional[torch.Generator] = None,
+                   nq1d: Optional[int] = None, dtype=None,
+                   device=None) -> torch.Tensor:
+    """Gaussian random right-hand side b ~ N(0, M): b = Rᵀ diag(L_e) w with
+    L_e L_eᵀ = M_e the element mass matrix's Cholesky factor (float64, one
+    batched factorisation) and w ~ N(0, I)
+    (WhiteGaussianNoiseDomainLFIntegrator), so E[b bᵀ] = M.
+
+    ``w`` is the (ne, nd, num or 1) float64 draw; without it one is drawn
+    on the CPU from ``generator`` (a fresh unseeded one if None) and moved
+    to ``device``.  ``num=None`` gives one sample (ndof,), ``num=k`` k
+    samples (k, ndof)."""
+    dev = resolve_device(device)
+    gf = geom_factors_for(fes, nq1d, dtype, dev)
+    B = torch.as_tensor(fes.dof_to_quad(nq1d).full_B(), dtype=gf.wdet.dtype,
+                        device=dev)                              # (nq, nd)
+    Me = torch.einsum("qi,eq,qj->eij", B, gf.wdet, B)
+    # float64 Cholesky: in float32 the high-order mass blocks lose PD
+    L = torch.linalg.cholesky(Me.double())
+    ne, nd = Me.shape[0], Me.shape[1]
+    if w is None:
+        w = torch.randn((ne, nd, num or 1), generator=generator,
+                        dtype=torch.float64)
+    w = torch.as_tensor(w, dtype=torch.float64, device=dev)
+    b_e = torch.einsum("eij,ejs->eis", L, w).to(real_t(dtype))     # (ne, nd, k)
+    r = restriction_for(fes, dev)
+    b = torch.stack([r.mult_transpose(b_e[..., s].contiguous())
+                     for s in range(b_e.shape[-1])])             # (k, ndof)
+    return b[0] if num is None else b

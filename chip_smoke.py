@@ -307,6 +307,45 @@ Phases, in order; any failure raises and the exit code is non-zero:
    and its last line; then the restriction at their spaces' shapes and
    the fused diffusion kernel at ex16 hex-8's, against plain.
 
+29. The restriction's derivatives (``fem/restriction.py``'s autograd
+   Functions) at the n=126 map (995,336 × 27) and the [30] beam's
+   (13,824 × 27), float32 and float64: each direction's forward bitwise
+   the kernel called directly, its backward bitwise the other direction's
+   kernel, its jvp bitwise the kernel on the tangent, one launch each and
+   a ``grad_fn`` on every output; the gradient of ||R u||² through the
+   kernels; ``gradcheck`` / ``gradgradcheck`` (forward mode and
+   forward-over-reverse too) in float64 on a small map on the card.
+30. ex10 hyperelasticity (``models/hyperelastic.HyperelasticProblem``):
+   Newton with JAX's defaults (line search 12, Jacobi-PCG to 1e-8, at most
+   800), the exact tangent through the kernels (``gradient_tangent``: the
+   gradient's graph built once a Newton step, one backward pass an
+   apply).  First a 16x2x2 beam on CUDA and on CPU tensors
+   (1e-10, equal Newton counts, CG counts equal but for round-off, within
+   3: ``counts_close``); then 64x8x8 at a tiny traction against ex2's
+   linear elasticity (5e-3, JAX's test) and its tangent apply's ms; then
+   the main run on 96x12x12 (length 8, order 2, vdim 3, 361,875 float64
+   dofs; a cut of [20]'s 128x16x16, whose solve was predicted over ~120 s)
+   under a traction of 0.01 along it: setup, Newton and CG counts, solve
+   seconds, ms a tangent apply (CUDA events), the residual drop (held ≤
+   1e-9), peak memory and launches; then the restriction kernels bitwise
+   against their plain versions at the beam's map and its boundary
+   faces' map.
+31. ex23's wave equation (``models/wave.WaveOperator``, Newmark β = 1/4,
+   dt 1e-3): cardiac hex n=16 in float64 on CUDA and on the CPU (1e-10,
+   equal CG counts), then [4]'s n=126 space in float32 (rel_tol 1e-5):
+   three steps after a warm-up, s/step (CUDA events), CG per mass and
+   implicit solve, the discrete energy's drift (held ≤ 1e-3), launches
+   of the restriction and ``fused_diffusion`` kernels, both then held to
+   their plain versions at this path's shapes.
+32. The rest of the slice on the card against the CPU at the JAX tests'
+   sizes, float64, 1e-10 and equal counts (``counts_close`` inside Newton
+   solves, on the SIMP systems and the Schur MINRES): MINRES, BiCGStab,
+   FGMRES, L-BFGS; generalized-α and SIA on a wave operator;
+   incompressible and eikonal; topopt and the obstacle problem; the
+   fractional solve, the Matérn sampler with given draws and LOBPCG from
+   a given block; the three constrained solves and
+   BlockILU-PCG; three Navier–Stokes steps in 3D.
+
 Last, ``dryrun_multichip(torch.cuda.device_count())``: one spawned rank a
 card over NCCL.
 
@@ -336,7 +375,10 @@ full-size solves), ``refine_launches`` ([27]) and ``example_launches``
 ([28], the six example runs summed); the ``gather_transpose`` and
 ``segment_sum`` entries ``refined_*`` fields (float32, [25]'s refined fine
 level), the ``gather_sum`` entry ``refined_round_trip_*``; the
-``fused_diffusion`` entry the same launch fields.
+``fused_diffusion`` entry the same launch fields.  Every restriction entry
+carries ``hyperelastic_launches`` ([30]'s main solve), ``wave_launches``
+([31]'s n=126 steps) and ``rest_launches`` ([32]'s card runs); the
+``fused_diffusion`` entry ``wave_launches`` and ``rest_launches``.
 """
 
 from __future__ import annotations
@@ -3118,6 +3160,665 @@ def phase_examples(kc, dev):
     return total
 
 
+# [30]: ex10 hyperelasticity on [20]'s beam cross-section and length (x = 0
+# fixed, attribute 5; the traction on x = 8, attribute 3), order 2, float64,
+# JAX's solve defaults.  The traction pulls along the beam: JAX's line
+# search keeps only steps that lower ||F||, and a transverse load that
+# bends this 8:1 beam raises ||F|| on the first full Newton step at any
+# load whose ||F0|| lies above the residual's round-off floor, so Newton
+# crawls (PERF.md)
+HYPER = dict(mu=1.0, kappa=10.0, fixed_bdr=(5,), force_bdr=(3,), dtype="float64")
+HYPER_LOAD = (1e-2, 0.0, 0.0)
+HYPER_TINY = (1e-4, 0.0, 0.0)        # the small-strain check against ex2
+# the main run's beam: 96x12x12 at order 2 (361,875 dofs), a cut of [20]'s
+# 128x16x16 (839,619 dofs), whose solve was predicted over ~120 s on one
+# H100 (PERF.md, PR 13)
+HYPER_MAIN = (96, 12, 12)
+# [31]: ex23 on [4]'s mesh; dt against h ~ 3.2e-4 gives c0 K ~ 2.5 M
+WAVE = dict(c2=1.0, max_iter=500)
+WAVE_DT = 1e-3
+
+
+def wave_u0(x):
+    """A smooth initial displacement on the cardiac box (0, L)² × (0, L/2)."""
+    return (torch.sin(np.pi * x[..., 0] / L) * torch.sin(np.pi * x[..., 1] / L)
+            * torch.sin(2 * np.pi * x[..., 2] / L))
+
+
+def check_restriction_functions(r, label, dtype, gen):
+    """[29] The restriction's autograd Functions on the card: the forward
+    of each direction bitwise the kernel called directly, its backward
+    bitwise the other direction's kernel, its jvp bitwise the kernel on the
+    tangent; each Function call launches its kernel once."""
+    from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
+
+    dev = r.g.device
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
+
+    def launches():
+        return tuple(getattr(bg, k).launches for k in RESTRICTION_KERNELS)
+
+    ne, nd, n = r.ne, r.nd, r.ndof
+    cases = (
+        # (name, Function, input, kernel on an input, adjoint kernel on a cotangent)
+        ("mult", r.mult, rnd(n), lambda x: bg.gather_sum(x, r.g).view(ne, nd),
+         lambda g: bg.segment_sum(g.reshape(-1), r.slots, r.offsets), 0),
+        ("mult_t", r.mult_t, rnd(n), lambda x: bg.gather_transpose(x, r.gm),
+         lambda g: bg.segment_sum(g.reshape(-1), r.slotsT, r.offsets), 1),
+        ("mult_transpose", r.mult_transpose, rnd(ne, nd),
+         lambda x: bg.segment_sum(x.reshape(-1), r.slots, r.offsets),
+         lambda g: bg.gather_sum(g, r.g).view(ne, nd), 2),
+        ("mult_transpose_t", r.mult_transpose_t, rnd(nd, ne),
+         lambda x: bg.segment_sum(x.reshape(-1), r.slotsT, r.offsets),
+         lambda g: bg.gather_transpose(g, r.gm), 2),
+    )
+    for name, fn, x, kern, adj, k in cases:
+        b0 = launches()
+        y = fn(x)
+        check(launches()[k] == b0[k] + 1, f"[29] {label} {name} launched its kernel")
+        check(torch.equal(bits(y), bits(kern(x))), f"[29] {label} {name} forward")
+        g = rnd(*y.shape)
+        xg = x.clone().requires_grad_(True)
+        yg = fn(xg)
+        check(yg.grad_fn is not None, f"[29] {label} {name} has a grad_fn")
+        b0 = launches()
+        (gx,) = torch.autograd.grad(yg, xg, g)
+        kb = 2 if k < 2 else (0 if name == "mult_transpose" else 1)
+        check(launches()[kb] == b0[kb] + 1, f"[29] {label} {name} backward launched")
+        check(torch.equal(bits(gx), bits(adj(g))), f"[29] {label} {name} backward")
+        t = rnd(*x.shape)
+        b0 = launches()
+        _, ty = torch.func.jvp(fn, (x,), (t,))
+        check(launches()[k] == b0[k] + 2, f"[29] {label} {name} jvp launched twice")
+        check(torch.equal(bits(ty), bits(kern(t))), f"[29] {label} {name} jvp")
+    print(f"[29] {label} {str(dtype)[6:]}: mult, mult_t, mult_transpose, "
+          f"mult_transpose_t forward, backward and jvp bitwise equal to the "
+          f"kernels, one launch each, a grad_fn on every output")
+
+
+def phase_restriction_derivatives(dev, spaces):
+    """[29] The restriction's derivatives through the kernels at the main
+    paths' shapes, a grad through them, and gradcheck in float64."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import restriction_for
+    from cardiac_ablation_ecm2_tpu_torch.fem.restriction import ElementRestriction
+    from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(29)
+    for label, fes in spaces:
+        r = restriction_for(fes, dev)
+        for dtype in (torch.float32, torch.float64):
+            check_restriction_functions(r, label, dtype, gen)
+        torch.cuda.empty_cache()
+    # a gradient through the kernels (the loss of a plain ctypes call, which
+    # would leave no grad_fn, cannot come back silently)
+    r = restriction_for(spaces[-1][1], dev)
+    u = torch.randn(r.ndof, generator=gen, device=dev, dtype=torch.float64,
+                    requires_grad=True)
+    loss = (r.mult(u) ** 2).sum()
+    check(loss.grad_fn is not None, "[29] the loss through mult has a grad_fn")
+    b0 = bg.segment_sum.launches
+    loss.backward()
+    check(bg.segment_sum.launches == b0 + 1, "[29] the backward launched segment_sum")
+    ref = bg.segment_sum((2 * r.mult(u.detach())).reshape(-1), r.slots, r.offsets)
+    gerr = float((u.grad - ref).abs().max() / ref.abs().max())
+    check(gerr == 0.0, f"[29] grad of ||R u||^2 equals R^T(2 R u) ({gerr:.1e})")
+    rng = np.random.default_rng(29)
+    gm = rng.integers(0, 40, (9, 8))
+    gm[1, :3] = 39
+    rs = ElementRestriction(gm, 40, dev)
+    shapes = {"mult": (40,), "mult_t": (40,), "mult_transpose": (9, 8),
+              "mult_transpose_t": (8, 9)}
+    b0 = [getattr(bg, k).launches for k in RESTRICTION_KERNELS]
+    for name, shape in shapes.items():
+        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float64,
+                        requires_grad=True)
+        f = getattr(rs, name)
+        check(torch.autograd.gradcheck(f, (x,), check_forward_ad=True),
+              f"[29] gradcheck {name}")
+        check(torch.autograd.gradgradcheck(f, (x,), check_fwd_over_rev=True),
+              f"[29] gradgradcheck {name}")
+    got = [getattr(bg, k).launches - b for k, b in zip(RESTRICTION_KERNELS, b0)]
+    check(all(n > 0 for n in got), "[29] gradcheck ran on the kernels")
+    print(f"[29] grad of ||R u||^2 on the beam through the kernels: grad_fn "
+          f"{type(loss.grad_fn).__name__}, equal to R^T(2 R u) bitwise; gradcheck "
+          f"and gradgradcheck (reverse, forward, forward-over-reverse) in float64 "
+          f"on a (9, 8) map on the card pass, kernel launches "
+          + ", ".join(f"{k} {n}" for k, n in zip(RESTRICTION_KERNELS, got)))
+    print(f"[29] phase {time.perf_counter() - t0:.1f} s")
+
+
+def counts_close(a, b):
+    """Krylov counts on two devices: equal but for round-off, within 3
+    each.  A count moves under a 1e-15 relative change of an apply where
+    its residual crosses the threshold slowly; the card and the CPU have
+    differed by at most 2 (PERF.md, PR 13)."""
+    return len(a) == len(b) and all(abs(x - y) <= 3 for x, y in zip(a, b))
+
+
+def hyper_problem(fes, load, dev):
+    from cardiac_ablation_ecm2_tpu_torch.models.hyperelastic import HyperelasticProblem
+
+    return HyperelasticProblem(fes=fes, force=np.array(load), device=dev, **HYPER)
+
+
+def beam_space(shape, length=8.0):
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_3d
+
+    return FESpace(make_cartesian_3d(*shape, sx=length), 2, vdim=3)
+
+
+def tangent_ms(prob, u):
+    """Median CUDA-event ms at u of one tangent apply as ``torch.func.jvp``
+    of the residual (``newton``'s default, the primal re-run each apply),
+    of one apply of ``prob.tangent`` (what ``solve`` uses: one backward
+    pass through the gradient's graph) and of building that graph."""
+    from cardiac_ablation_ecm2_tpu_torch.linalg.newton import jacobian_action
+
+    v = torch.ones_like(u)
+    v[prob.ess] = 0.0
+    J, T = jacobian_action(prob.residual, u), prob.tangent(u)
+    return (time_ms(lambda: J(v), reps=5), time_ms(lambda: T(v), reps=10),
+            time_ms(lambda: prob.tangent(u), reps=5))
+
+
+def phase_hyperelastic(kc, dev, beam_fes):
+    """[30] ex10 hyperelastic Newton (``models/hyperelastic.py``); returns
+    the launches of the main solve."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import bdr_restriction_for
+    from cardiac_ablation_ecm2_tpu_torch.models import elasticity
+
+    t0 = time.perf_counter()
+    small = [hyper_problem(beam_space((16, 2, 2)), HYPER_LOAD, d) for d in (dev, "cpu")]
+    (ug, ig), (uc, ic) = [p.solve() for p in small]
+    rel = rel_diff(ug, uc)
+    check(ig.converged and rel <= 1e-10 and ig.iterations == ic.iterations
+          and counts_close(ig.linear_iterations, ic.linear_iterations),
+          f"[30] 16x2x2 beam: CUDA within 1e-10 of the CPU ({rel:.2e}), equal "
+          f"Newton counts, CG counts within round-off ({ig} / {ic})")
+    print(f"[30] 16x2x2 beam f64: CUDA vs CPU rel diff {rel:.3e}, Newton "
+          f"{ig.iterations} both, CG per step {list(ig.linear_iterations)} on the "
+          f"card, {list(ic.linear_iterations)} on the CPU "
+          f"({time.perf_counter() - t0:.1f} s)")
+    # 64x8x8: the small-strain check against ex2, and the tangent apply's
+    # time
+    fes64 = beam_space((64, 8, 8))
+    p64 = hyper_problem(fes64, HYPER_TINY, dev)
+    u64, i64 = p64.solve()
+    lam = HYPER["kappa"] - 2.0 * HYPER["mu"] / 3
+    lin = elasticity.solve(fes64.mesh, order=2, lam=lam, mu=HYPER["mu"],
+                           fixed_bdr=HYPER["fixed_bdr"], force_bdr=HYPER["force_bdr"],
+                           force=HYPER_TINY, rel_tol=1e-10, dtype="float64", device=dev)
+    d_lin = lin.displacement()
+    lin_rel = float(np.abs(p64.displacement(u64) - d_lin).max() / np.abs(d_lin).max())
+    check(i64.converged and lin_rel < 5e-3,
+          f"[30] 64x8x8 small strain within 5e-3 of ex2's solve ({lin_rel:.2e})")
+    jvp64, lin64, build64 = tangent_ms(p64, u64)
+    print(f"[30] 64x8x8 ({fes64.ndof} dofs), traction {HYPER_TINY}: Newton "
+          f"{i64.iterations}, CG {list(i64.linear_iterations)}; within {lin_rel:.2e} "
+          f"of ex2's linear elasticity (lambda = kappa - 2mu/3, CG {lin.iterations}); "
+          f"tangent apply {lin64:.3f} ms (jvp of the residual {jvp64:.3f} ms, the "
+          f"graph built in {build64:.3f} ms)")
+    del p64, lin, fes64
+    torch.cuda.empty_cache()
+
+    start_main_path()
+    t1 = time.perf_counter()
+    prob = hyper_problem(beam_fes, HYPER_LOAD, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t1
+    F0 = float(torch.linalg.norm(prob.residual(torch.zeros_like(prob.b))))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    u, info = prob.solve()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t1
+    launches = main_path_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(u.shape == (beam_fes.ndof,) and bool(torch.isfinite(u).all()),
+          "[30] finite displacement of the expected shape")
+    Fn = float(torch.linalg.norm(prob.residual(u)))
+    jvp_ms, ms, build_ms = tangent_ms(prob, u)
+    applies = sum(info.linear_iterations)
+    print(f"[30] ex10 beam {'x'.join(map(str, HYPER_MAIN))} order 2 vdim 3 f64: "
+          f"{beam_fes.ndof} dofs, traction {HYPER_LOAD} on x = 8; setup "
+          f"{setup_s:.2f} s; Newton {info.iterations} iterations (converged "
+          f"{info.converged}), CG per Newton step {list(info.linear_iterations)}; "
+          f"solve {solve_s:.2f} s; tangent apply {ms:.3f} ms (CUDA events; "
+          f"{applies} applies, {applies * ms / 1e3:.1f} s of the solve; the graph "
+          f"built in {build_ms:.3f} ms a Newton step; as a jvp of the residual "
+          f"{jvp_ms:.3f} ms); "
+          f"||F|| {F0:.3e} -> {Fn:.3e} (drop {Fn / F0:.2e}); tip u_x "
+          f"{float(prob.displacement(u)[:, 0].max()):.6e}; peak "
+          f"{peak / 2**30:.3f} GiB; launches "
+          + ", ".join(f"{k} {launches[k]}" for k in RESTRICTION_KERNELS))
+    check(info.converged and Fn <= 1e-9 * F0,
+          "[30] converged, final residual <= rel_tol x the initial one")
+    for k in ("gather_sum", "segment_sum"):
+        check(launches[k] > 0, f"[30] the Newton solve launched {k}")
+    # the kernels at the tables the solve ran on: the beam's map (L->E and
+    # E->L of every residual and tangent apply) and its boundary faces'
+    # (the traction's linear form)
+    shape = "x".join(map(str, HYPER_MAIN))
+    check_restriction(kc, prob.restr, f"ex10 beam {shape} ", "[30]", seed=30)
+    check_restriction(kc, bdr_restriction_for(beam_fes, dev),
+                      f"ex10 beam {shape} boundary ", "[30]", seed=300)
+    print(f"[30] phase {time.perf_counter() - t0:.1f} s")
+    return launches, dict(shape=HYPER_MAIN, tangent_ms=ms, jvp_ms=jvp_ms, solve_s=solve_s,
+                          newton=info.iterations, cg=list(info.linear_iterations))
+
+
+def wave_steps(op, n, dt, T=None):
+    """n Newmark steps from (wave_u0, 0); the per-step (mass, implicit) CG
+    counts."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.gridfunction import project
+    from cardiac_ablation_ecm2_tpu_torch.linalg.ode2 import select2
+    from cardiac_ablation_ecm2_tpu_torch.models.wave import make_stepper
+
+    step = make_stepper(op, select2("newmark"))
+    u = project(op.fes, wave_u0, op.dtype, op.device) if T is None else T[0]
+    v = torch.zeros_like(u) if T is None else T[1]
+    t, counts = 0.0, []
+    for _ in range(n):
+        u, v, t = step(u, v, t, dt)
+        counts.append((op.mass_info.iterations, op.implicit_info.iterations))
+        check(op.mass_info.converged and op.implicit_info.converged,
+              "wave solves converged")
+    return u, v, counts
+
+
+def phase_wave(kc, dev, hex_fes):
+    """[31] ex23's wave equation under Newmark (``models/wave.py``) on the
+    cardiac hex mesh; returns the launches of the n=126 steps."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
+    from cardiac_ablation_ecm2_tpu_torch.models.wave import WaveOperator
+
+    t0 = time.perf_counter()
+    fes16 = FESpace(make_cardiac_hex_mesh(16, lengths=(L, L, L / 2),
+                                          electrode_radius=0.004), 2)
+    runs = []
+    for d in (dev, "cpu"):
+        op = WaveOperator(fes16, rel_tol=1e-10, dtype="float64", device=d, **WAVE)
+        u, v, counts = wave_steps(op, 3, WAVE_DT)
+        runs.append((u, counts))
+    rel = rel_diff(runs[0][0], runs[1][0])
+    check(rel <= 1e-10 and runs[0][1] == runs[1][1],
+          f"[31] n=16: CUDA within 1e-10 of the CPU ({rel:.2e}), equal CG counts")
+    print(f"[31] cardiac hex n=16 f64 ({fes16.ndof} dofs): CUDA vs CPU rel diff "
+          f"{rel:.3e}, CG (mass, implicit) per step {runs[0][1]} both")
+    del runs, fes16
+
+    start_main_path()
+    t1 = time.perf_counter()
+    op = WaveOperator(hex_fes, rel_tol=1e-5, dtype="float32", device=dev, **WAVE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t1
+    u, v, warm = wave_steps(op, 1, WAVE_DT)
+    E0 = op.energy(u, v)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    u, v, counts = wave_steps(op, 3, WAVE_DT, (u, v))
+    b.record()
+    torch.cuda.synchronize()
+    s_step = a.elapsed_time(b) / 1e3 / 3
+    launches = main_path_launches()
+    peak = torch.cuda.max_memory_allocated()
+    E3 = op.energy(u, v)
+    check(u.shape == (hex_fes.ndof,) and bool(torch.isfinite(u).all())
+          and bool(torch.isfinite(v).all()), "[31] finite u, v of the expected shape")
+    drift = abs(E3 - E0) / abs(E0)
+    print(f"[31] ex23 wave on cardiac hex n=126 order 2 f32: {hex_fes.ndof} dofs, "
+          f"dt {WAVE_DT}, Newmark beta 1/4; setup {setup_s:.2f} s; s/step "
+          f"{s_step:.6f} (CUDA events, 3 steps after a warm-up); CG per mass "
+          f"solve {[c[0] for c in counts]}, per implicit solve "
+          f"{[c[1] for c in counts]} (warm-up {warm[0]}); energy "
+          f"{E0:.6e} -> {E3:.6e}, drift {drift:.2e}; peak {peak / 2**30:.3f} GiB; "
+          f"launches " + ", ".join(f"{k} {launches[k]}" for k in
+                                   RESTRICTION_KERNELS + ("fused_diffusion",)))
+    check(drift <= 1e-3, "[31] the discrete energy kept within 1e-3")
+    for k in ("gather_sum", "segment_sum", "fused_diffusion"):
+        check(launches[k] > 0, f"[31] the wave steps launched {k}")
+    check_restriction(kc, op.restr, "wave n=126 ", "[31]", seed=31)
+    check_operator_diffusion("[31]", "wave n=126 K_qd", op)
+    print(f"[31] phase {time.perf_counter() - t0:.1f} s")
+    return launches, dict(s_step=s_step, cg=counts)
+
+
+def both(label, fn, dev, rtol=1e-10):
+    """``fn(device)`` on the card and on the CPU: every tensor it returns
+    within ``rtol`` relative, every count equal (the Krylov counts that
+    ``fn`` returns in ``Krylov`` or ``Newton``, inside Newton solves or on
+    the ill-conditioned SIMP systems, within ``counts_close``); prints the
+    seconds."""
+    t0 = time.perf_counter()
+    outs = []
+    for d in (dev, "cpu"):
+        ts, counts = fn(d)
+        outs.append(([t.detach().cpu() for t in ts], counts))
+    (tg, cg_), (tc, cc) = outs
+    rels = [rel_diff(a, b) for a, b in zip(tg, tc)]
+    rel = max(rels)
+
+    def same(a, b):
+        if isinstance(a, Krylov):
+            return counts_close(a, b)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        return a == b
+
+    check(rel <= rtol and same(cg_, cc), f"[32] {label}: CUDA within {rtol:g} of "
+          f"the CPU (each output: {', '.join(f'{r:.2e}' for r in rels)}), equal "
+          f"counts ({cg_} / {cc})")
+
+    def brief(c):
+        if isinstance(c, Newton):
+            return f"Newton {c.iterations} {list(c.linear)}"
+        if isinstance(c, Krylov):
+            return list(c)
+        if isinstance(c, (list, tuple)) and len(c) > 12:
+            return f"<{len(c)} solves, {sum(c)} iterations>"
+        if isinstance(c, (list, tuple)):
+            return [brief(x) for x in c]
+        return c
+
+    sides = "both" if cg_ == cc else f"on the card, {brief(cc)} on the CPU"
+    print(f"[32] {label}: rel diff {rel:.3e}, counts {brief(cg_)} {sides}, "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+class Krylov(tuple):
+    """Krylov counts compared by ``counts_close``, not for equality."""
+
+
+class Newton(tuple):
+    """A Newton solve's counts: (iterations, linear counts per step)."""
+
+    def __new__(cls, info):
+        return super().__new__(cls, (info.iterations, Krylov(info.linear_iterations)))
+
+    iterations = property(lambda self: self[0])
+    linear = property(lambda self: self[1])
+
+
+def _dense(d, seed, n=40, kind="nonsym"):
+    rng = np.random.default_rng(seed)
+    if kind == "indefinite":
+        Q, _ = np.linalg.qr(rng.random((n, n)))
+        A = Q @ np.diag(np.linspace(1.0, 50.0, n)) @ Q.T
+        A[:10] *= -1.0
+        A = 0.5 * (A + A.T)
+    elif kind == "spd":
+        A = rng.random((n, n))
+        A = A @ A.T + n * np.eye(n)
+    else:
+        A = np.eye(n) * 4 + 0.3 * rng.standard_normal((n, n))
+    At = torch.as_tensor(A, device=d)
+    return At, torch.as_tensor(rng.standard_normal(n), device=d)
+
+
+def rest_krylov(d):
+    from cardiac_ablation_ecm2_tpu_torch.linalg import krylov_extra as kx
+    from cardiac_ablation_ecm2_tpu_torch.linalg.newton import lbfgs
+
+    A, b = _dense(d, 2, 30, "indefinite")
+    x1, i1 = kx.minres(lambda v: A @ v, b, rel_tol=1e-11, max_iter=300)
+    A, b = _dense(d, 4)
+    x2, i2 = kx.bicgstab(lambda v: A @ v, b, M=lambda r: r / torch.diagonal(A),
+                         rel_tol=1e-12, max_iter=300)
+    state = {"k": 0}
+    dg = torch.diagonal(A)
+
+    def M(v):
+        state["k"] += 1
+        z = v / dg
+        for _ in range(1 + state["k"] % 3):
+            z = z + (v - A @ z) / dg
+        return z
+
+    x3, i3 = kx.fgmres(lambda v: A @ v, b, M=M, rel_tol=1e-12, restart=20,
+                       max_iter=200)
+    A, b = _dense(d, 0, 12, "spd")
+    x4, i4 = lbfgs(lambda u: A @ u - b, torch.zeros_like(b), rel_tol=1e-10,
+                   max_iter=100)
+    return (x1, x2, x3, x4), [i.iterations for i in (i1, i2, i3, i4)]
+
+
+def rest_ode2(d):
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.fem.gridfunction import project
+    from cardiac_ablation_ecm2_tpu_torch.linalg.ode2 import GeneralizedAlpha2Solver, SIASolver
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2_tpu_torch.models.wave import WaveOperator
+
+    op = WaveOperator(FESpace(make_cartesian_3d(4, 4, 4), 2), rel_tol=1e-12,
+                      dtype="float64", device=d)
+    u = project(op.fes, lambda x: torch.sin(np.pi * x[..., 0]) * torch.sin(
+        np.pi * x[..., 1]) * torch.sin(np.pi * x[..., 2]), "float64", d)
+    v, t, counts = torch.zeros_like(u), 0.0, []
+    ga = GeneralizedAlpha2Solver.from_rho(0.5)
+    a = ga.init(op, u, v, t)
+    ua, va = u, v
+    for _ in range(3):
+        ua, va, a, t = ga.step(op, ua, va, a, t, 0.01)
+        counts.append(op.implicit_info.iterations)
+
+    class Separable:
+        def velocity(self, t, p):
+            return p
+
+        def force(self, t, q):
+            f = op.mult(t, q, None)
+            counts.append(op.mass_info.iterations)
+            return f
+
+    q, p = u, torch.zeros_like(u)
+    for _ in range(2):
+        q, p, t = SIASolver(4).step(Separable(), q, p, t, 0.01)
+    return (ua, va, q, p), counts
+
+
+def rest_models(d):
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_2d, make_cartesian_3d
+    from cardiac_ablation_ecm2_tpu_torch.models.eikonal import EikonalSolver
+    from cardiac_ablation_ecm2_tpu_torch.models.incompressible import IncompressibleHyperelastic
+
+    inc = IncompressibleHyperelastic(
+        make_cartesian_3d(1, 1, 1), order=2, mu=1.0, device=d, dtype="float64",
+        ess=[(0, [5], 0.0), (0, [3], 0.2), (1, [2], 0.0), (2, [1], 0.0)])
+    x, ix = inc.solve(rel_tol=1e-9)
+    eik = EikonalSolver(make_cartesian_2d(6, 6), order=2, p_schedule=(2.0, 3.0),
+                        dtype="float64", device=d)
+    u, _ = eik.solve()
+    counts = [Newton(ix)] + [Newton(i) for i in eik.infos]
+    return (x, u), counts
+
+
+def rest_topopt_obstacle(d):
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg.obstacle import obstacle_solve
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import Mesh, make_cartesian_2d
+    from cardiac_ablation_ecm2_tpu_torch.models.topopt import TopOpt
+    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
+    from cardiac_ablation_ecm2_tpu_torch.ops.linearform import domain_lf
+
+    m0 = make_cartesian_2d(12, 6)
+    V = m0.vertices.copy()
+    V[:, 0] *= 2.0
+    to = TopOpt(Mesh(geom=m0.geom, vertices=V, elements=m0.elements,
+                     attributes=m0.attributes, boundary=m0.boundary,
+                     bdr_attributes=m0.bdr_attributes),
+                volfrac=0.4, filter_radius=0.3, dtype="float64", device=d)
+    rho, u, cgs = torch.full((to.mesh.ne,), 0.4, dtype=torch.float64, device=d), None, []
+    for _ in range(3):
+        rho, u, _ = to.step(rho, u)
+        cgs.append(to.info.iterations)
+    # SIMP's contrast (E_min 1e-4) leaves CG counts within round-off
+    # (56, 54, 58 on the card against 56, 54, 57 on the CPU)
+    counts = [Krylov(cgs)]
+    fes = FESpace(make_cartesian_2d(12, 12), 1)
+    A = BilinearForm(fes, d).add_domain_integrator("diffusion").assemble("float64")
+    b = domain_lf(fes, -8.0, dtype="float64", device=d)
+    fm = torch.zeros(fes.ndof, dtype=torch.float64, device=d)
+    fm[torch.as_tensor(fes.essential_dofs(), device=d)] = 1.0
+    uo, lam, outer = obstacle_solve(A.mult, b, torch.full_like(b, -0.08),
+                                    diag=A.diagonal(), fixed_mask=fm)
+    counts += [outer, list(obstacle_solve.cg_iterations)]
+    return (rho, u, uo, lam), counts
+
+
+def rest_spectral(d):
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg import fractional
+    from cardiac_ablation_ecm2_tpu_torch.linalg.lobpcg import lobpcg
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_2d
+    from cardiac_ablation_ecm2_tpu_torch.models.spde import sample_matern_field
+    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
+    from cardiac_ablation_ecm2_tpu_torch.ops.linearform import domain_lf
+
+    fes = FESpace(make_cartesian_2d(8, 8), 2)
+    A = BilinearForm(fes, d).add_domain_integrator("diffusion").assemble("float64")
+    M = BilinearForm(fes, d).add_domain_integrator("mass").assemble("float64")
+    m = torch.ones(fes.ndof, dtype=torch.float64, device=d)
+    m[torch.as_tensor(fes.essential_dofs(), device=d)] = 0.0
+    Am = lambda v: A.mult(v * m) * m + v * (1 - m)
+    Mm = lambda v: M.mult(v * m) * m + v * (1 - m)
+    dA, dM = A.diagonal() * m + (1 - m), M.diagonal() * m + (1 - m)
+    b = domain_lf(fes, lambda x: torch.sin(np.pi * x[..., 0]) * torch.sin(np.pi * x[..., 1]),
+                  dtype="float64", device=d) * m
+    uf = fractional.fractional_solve(Am, Mm, dA, dM, 0.5, b, lam_min=2 * np.pi ** 2 / 4,
+                                     lam_max=1e5, k=0.45)
+    counts = [list(fractional.fractional_apply.cg_iterations)]
+    fes1 = FESpace(make_cartesian_2d(8, 8), 1)
+    w = torch.randn((fes1.mesh.ne, fes1.gather_map.shape[1], 1),
+                    generator=torch.Generator().manual_seed(32), dtype=torch.float64)
+    us = sample_matern_field(fes1, w, nu=0.5, ell=0.15, dtype="float64", device=d)
+    X0 = torch.randn((fes.ndof, 5), generator=torch.Generator().manual_seed(0),
+                     dtype=torch.float64)
+    res = lobpcg(Am, lambda v: Mm(v) * m, fes.ndof, 5, precond=lambda r: r / dA,
+                 iters=40, X0=X0.to(d), constraint=lambda v: v * m)
+    return (uf, us, res.eigenvalues), counts
+
+
+def rest_constrained(d):
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg import constrained as cs
+    from cardiac_ablation_ecm2_tpu_torch.linalg.blockilu import block_ilu0
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import Mesh, make_cartesian_2d
+    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
+    from cardiac_ablation_ecm2_tpu_torch.ops.linearform import boundary_lf_vector
+
+    m0 = make_cartesian_2d(8, 8)
+    V = m0.vertices.copy()
+    V[:, 0] = V[:, 0] + (1.0 - V[:, 0]) * 0.3 * V[:, 1]
+    fes = FESpace(Mesh(geom=m0.geom, vertices=V, elements=m0.elements,
+                       attributes=m0.attributes, boundary=m0.boundary,
+                       bdr_attributes=m0.bdr_attributes), 1, vdim=2)
+    A = BilinearForm(fes, d).add_domain_integrator("elasticity", (1.0, 1.0)).assemble("float64")
+    b = boundary_lf_vector(fes, np.array([-5e-2, 0.0]), bdr_marker=[2], dtype="float64",
+                           device=d)
+    B = cs.build_normal_constraints(fes, [1, 4], dtype="float64", device=d)
+    dg = A.diagonal()
+    xe, le, ie = cs.eliminate_constrained_solve(A.mult, B, b, M=lambda v: v / dg,
+                                                rel_tol=1e-12, max_iter=4000)
+    xs, ls, is_ = cs.schur_constrained_solve(A.mult, B, b, Adiag=dg, rel_tol=1e-12,
+                                             max_iter=8000)
+    xp, lp, ip = cs.penalty_constrained_solve(A.mult, B, b, penalty=1e4,
+                                              M=lambda v: v / dg, rel_tol=1e-12,
+                                              max_iter=8000)
+    # BlockILU(0) as a preconditioner: the 2D grid of 3x3 blocks
+    rng = np.random.default_rng(2)
+    nx, bs = 5, 3
+    n = nx * nx * bs
+    Ad = np.zeros((n, n))
+    for i in range(nx):
+        for j in range(nx):
+            k = i * nx + j
+            q = rng.standard_normal((bs, bs))
+            Ad[k * bs:(k + 1) * bs, k * bs:(k + 1) * bs] = q @ q.T + 8 * np.eye(bs)
+            for (i2, j2) in ((i + 1, j), (i, j + 1)):
+                if i2 < nx and j2 < nx:
+                    k2 = i2 * nx + j2
+                    o = 0.6 * rng.standard_normal((bs, bs))
+                    Ad[k * bs:(k + 1) * bs, k2 * bs:(k2 + 1) * bs] = o
+                    Ad[k2 * bs:(k2 + 1) * bs, k * bs:(k + 1) * bs] = o.T
+    rows, cols, blocks = [], [], []
+    for i in range(nx * nx):
+        for j in range(nx * nx):
+            blk = Ad[i * bs:(i + 1) * bs, j * bs:(j + 1) * bs]
+            if np.any(blk != 0):
+                rows.append(i)
+                cols.append(j)
+                blocks.append(blk)
+    P = block_ilu0(np.stack(blocks), np.array(rows), np.array(cols), nx * nx,
+                   dtype="float64", device=d)
+    At = torch.as_tensor(Ad, device=d)
+    xb, ib = cg(lambda v: At @ v, torch.as_tensor(rng.standard_normal(n), device=d),
+                M=P.apply, rel_tol=1e-10, max_iter=500)
+    # MINRES on the saddle point to 1e-12 counts within round-off (125 on
+    # the card against 124 on the CPU)
+    return (xe, le, xs, xp, xb), [ie.iterations, Krylov([is_.iterations]),
+                                  ip.iterations, ib.iterations]
+
+
+def rest_navier(d):
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2_tpu_torch.models.navier import NavierSolver
+
+    def u0(x):
+        x = np.asarray(x)
+        return np.stack([np.sin(np.pi * x[..., 0]) ** 2 * np.sin(2 * np.pi * x[..., 1]),
+                         -np.sin(2 * np.pi * x[..., 0]) * np.sin(np.pi * x[..., 1]) ** 2,
+                         0 * x[..., 0]], axis=-1)
+
+    ns = NavierSolver(make_cartesian_3d(4, 4, 2), order=2, kin_vis=0.05,
+                      vel_bc=lambda x: np.zeros(np.asarray(x).shape[:-1] + (3,)),
+                      dtype="float64", device=d)
+    u, p = ns.initial_state(u0)
+    hist, counts = (u,), []
+    for i in range(3):
+        u, p = ns._make_step(0.005, min(i + 1, 2))(hist, p, ns.u_bc, ns.b_f)
+        counts.append([info.iterations for info in ns.last_infos])
+        hist = (u, hist[0])
+    return (u, p), counts
+
+
+REST = (("minres, bicgstab, fgmres, lbfgs (dense, the JAX tests' systems)", rest_krylov),
+        ("GeneralizedAlpha2Solver (rho 0.5) and SIASolver (order 4) on the wave "
+         "operator, 4^3 hexes order 2", rest_ode2),
+        ("incompressible (one hex, uniaxial 1.2, GMRES) and eikonal (6x6, p = 2, 3)",
+         rest_models),
+        ("topopt (12x6, three OC steps) and obstacle_solve (12x12)", rest_topopt_obstacle),
+        ("fractional_solve, sample_matern_field (given draws), lobpcg (given X0), "
+         "8x8", rest_spectral),
+        ("eliminate / schur / penalty constrained solves (ex28 trapezoid) and "
+         "BlockILU-PCG", rest_constrained),
+        ("navier 3D (4x4x2 order 2, three steps)", rest_navier))
+
+
+def phase_rest(dev):
+    """[32] the rest of the slice on the card against the CPU; returns the
+    launches of the card's runs."""
+    t0 = time.perf_counter()
+    start_main_path()
+    for label, fn in REST:
+        both(label, fn, dev)
+    launches = main_path_launches()
+    print(f"[32] launches on the card's runs: "
+          + ", ".join(f"{k} {launches[k]}" for k in
+                      RESTRICTION_KERNELS + ("fused_diffusion",)))
+    for k in ("gather_sum", "segment_sum", "fused_diffusion"):
+        check(launches[k] > 0, f"[32] the card's runs launched {k}")
+    print(f"[32] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def phase_dryrun():
     """``dryrun_multichip`` over every visible card (one spawned rank a
     card, NCCL)."""
@@ -3156,6 +3857,9 @@ def main():
     phase_par_small(dev)
     par_launches = phase_par_main(kc, dev, hex_mesh, fes)
     mesh_s = t1 - t0
+    hex_fes = fes                  # kept on the host for [29] and [31]
+    for cache in ("_restrictions", "_geom_factors", "_bdr_restrictions", "_bdr_geom"):
+        hex_fes.__dict__.pop(cache, None)
     del fes
 
     mesh, fes, host_s = tet_space(66)
@@ -3197,6 +3901,14 @@ def main():
     refine_launches = phase_prefine(kc, dev, spaces, ht)
     del spaces, ht
     example_launches = phase_examples(kc, dev)
+    beam_fes = beam_space(HYPER_MAIN)
+    phase_restriction_derivatives(dev, (("hex n=126", hex_fes), (
+        f"ex10 beam {'x'.join(map(str, HYPER_MAIN))}", beam_fes)))
+    hyper_launches, _ = phase_hyperelastic(kc, dev, beam_fes)
+    del beam_fes
+    wave_launches, _ = phase_wave(kc, dev, hex_fes)
+    del hex_fes
+    rest_launches = phase_rest(dev)
     phase_dryrun()
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -3246,7 +3958,9 @@ def main():
         k = entry["name"]
         entry.update(hmg_launches=hmg_launches[k], d2_launches=d2_launches[k],
                      refine_launches=refine_launches[k],
-                     example_launches=example_launches[k])
+                     example_launches=example_launches[k],
+                     hyperelastic_launches=hyper_launches[k],
+                     wave_launches=wave_launches[k], rest_launches=rest_launches[k])
         if k in bp_rows:
             entry.update({f"refined_{f}": kc.times[f"refined fine {bp_rows[k]}"][f]
                           for f in ("ms", "plain_ms", "bound_ms", "library_ms")})
@@ -3264,7 +3978,9 @@ def main():
              parallel_launches=par_launches["fused_diffusion"], **fd_numbers,
              **bf16_numbers, hmg_launches=hmg_launches["fused_diffusion"],
              d2_launches=d2_launches["fused_diffusion"],
-             example_launches=example_launches["fused_diffusion"]),
+             example_launches=example_launches["fused_diffusion"],
+             wave_launches=wave_launches["fused_diffusion"],
+             rest_launches=rest_launches["fused_diffusion"]),
     ] + [dict(name=k, route="cuda", **KERNELS[k], **probe_numbers[k],
               measures=PROBE_MEASURES) for k in PROBE_KERNELS]}))
     print(json.dumps({"ok": True, "device": {

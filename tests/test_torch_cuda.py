@@ -818,3 +818,111 @@ def test_2d_poisson_cuda_equals_cpu(cuda, quad_extra_0):
                              device=d) for d in (cuda, "cpu")]
         assert res[0].iterations == res[1].iterations
         assert _rel(res[0].u.cpu(), res[1].u) <= 1e-10
+
+
+def _small_restriction(dev):
+    rng = np.random.default_rng(29)
+    gm = rng.integers(0, 40, (9, 8))
+    gm[1, :3] = 39
+    return ElementRestriction(gm, 40, dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_restriction_functions_bitwise_equal_kernels(cuda, dtype):
+    """Each direction's autograd Function: forward bitwise the kernel,
+    backward bitwise the other direction's kernel, jvp bitwise the kernel
+    on the tangent, on the cardiac hex n=8 order-2 map."""
+    fes = FESpace(make_cardiac_hex_mesh(8), 2)
+    r = ElementRestriction(fes.gather_map, fes.ndof, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda, dtype=dtype)
+    ne, nd = r.ne, r.nd
+    cases = (
+        (r.mult, rnd(r.ndof), lambda x: bg.gather_sum(x, r.g).view(ne, nd),
+         lambda g: bg.segment_sum(g.reshape(-1), r.slots, r.offsets)),
+        (r.mult_t, rnd(r.ndof), lambda x: bg.gather_transpose(x, r.gm),
+         lambda g: bg.segment_sum(g.reshape(-1), r.slotsT, r.offsets)),
+        (r.mult_transpose, rnd(ne, nd),
+         lambda x: bg.segment_sum(x.reshape(-1), r.slots, r.offsets),
+         lambda g: bg.gather_sum(g, r.g).view(ne, nd)),
+        (r.mult_transpose_t, rnd(nd, ne),
+         lambda x: bg.segment_sum(x.reshape(-1), r.slotsT, r.offsets),
+         lambda g: bg.gather_transpose(g, r.gm)),
+    )
+    bitwise = lambda a, b: torch.equal(a.view(torch.int64 if dtype == torch.float64
+                                               else torch.int32),
+                                       b.view(torch.int64 if dtype == torch.float64
+                                              else torch.int32))
+    for fn, x, kern, adj in cases:
+        assert bitwise(fn(x), kern(x))
+        xg = x.clone().requires_grad_(True)
+        y = fn(xg)
+        assert y.grad_fn is not None
+        g = rnd(*y.shape)
+        (gx,) = torch.autograd.grad(y, xg, g)
+        assert bitwise(gx, adj(g))
+        t = rnd(*x.shape)
+        assert bitwise(torch.func.jvp(fn, (x,), (t,))[1], kern(t))
+
+
+def test_restriction_grad_goes_through_kernels(cuda):
+    """A gradient on CUDA tensors has a grad_fn and launches the kernels
+    (a ``.sum()`` gradient arrives with stride 0 and is made contiguous)."""
+    r = _small_restriction(cuda)
+    u = torch.randn(40, device=cuda, dtype=torch.float64, requires_grad=True)
+    before = bg.segment_sum.launches
+    loss = r.mult(u).sum()
+    assert loss.grad_fn is not None
+    loss.backward()
+    assert bg.segment_sum.launches == before + 1
+    ones = torch.ones(r.ne * r.nd, device=cuda, dtype=torch.float64)
+    assert torch.equal(u.grad, bg.segment_sum(ones, r.slots, r.offsets))
+
+
+@pytest.mark.parametrize("op", ["mult", "mult_t", "mult_transpose", "mult_transpose_t"])
+def test_restriction_gradcheck_cuda(cuda, op):
+    r = _small_restriction(cuda)
+    shape = {"mult": (40,), "mult_t": (40,), "mult_transpose": (9, 8),
+             "mult_transpose_t": (8, 9)}[op]
+    x = torch.randn(shape, device=cuda, dtype=torch.float64, requires_grad=True)
+    f = getattr(r, op)
+    assert torch.autograd.gradcheck(f, (x,), check_forward_ad=True)
+    assert torch.autograd.gradgradcheck(f, (x,), check_fwd_over_rev=True)
+
+
+def test_hyperelastic_and_wave_cuda_equal_cpu(cuda, quad_extra_0):
+    """Newton on a small hyperelastic beam (equal Newton counts, CG counts
+    within round-off) and three Newmark wave steps on a hex cube (equal
+    counts), float64, card against CPU."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.gridfunction import project
+    from cardiac_ablation_ecm2_tpu_torch.linalg.ode2 import select2
+    from cardiac_ablation_ecm2_tpu_torch.models.hyperelastic import HyperelasticProblem
+    from cardiac_ablation_ecm2_tpu_torch.models.wave import WaveOperator, make_stepper
+
+    fes = FESpace(make_cartesian_3d(8, 1, 1, sx=8.0), 2, vdim=3)
+    runs = [HyperelasticProblem(fes=fes, fixed_bdr=(5,), force_bdr=(3,),
+                                force=np.array([1e-2, 0.0, 0.0]), dtype="float64",
+                                device=d).solve() for d in (cuda, "cpu")]
+    (ug, ig), (uc, ic) = runs
+    # equal Newton counts; CG counts equal but for round-off, within 3 (a
+    # step's count moves under a 1e-15 relative change of the tangent apply;
+    # the card and the CPU have differed by at most 2)
+    assert ig.converged and ig.iterations == ic.iterations
+    assert len(ig.linear_iterations) == len(ic.linear_iterations)
+    assert all(abs(a - b) <= 3
+               for a, b in zip(ig.linear_iterations, ic.linear_iterations))
+    assert _rel(ug.cpu(), uc) <= 1e-10
+    wfes = FESpace(make_cartesian_3d(4, 4, 4), 2)
+    out = []
+    for d in (cuda, "cpu"):
+        op = WaveOperator(wfes, rel_tol=1e-12, dtype="float64", device=d)
+        step = make_stepper(op, select2("newmark"))
+        u = project(wfes, lambda x: torch.sin(np.pi * x[..., 0]) * torch.sin(
+            np.pi * x[..., 1]) * torch.sin(np.pi * x[..., 2]), "float64", d)
+        v, t, counts = torch.zeros_like(u), 0.0, []
+        for _ in range(3):
+            u, v, t = step(u, v, t, 0.05)
+            counts.append((op.mass_info.iterations, op.implicit_info.iterations))
+        out.append((u.cpu(), counts))
+    assert out[0][1] == out[1][1]
+    assert _rel(out[0][0], out[1][0]) <= 1e-10
