@@ -10,10 +10,12 @@ dt = 0.5, as the JAX entry's ``jnp.float32`` scalars; ``fn`` takes T₀ to
 the operator's dtype (the configured one) as JAX's type promotion does.
 ``device=None`` is the card.
 
-``dryrun_multichip(n, device=None)`` runs one sharded SDIRK33 step of the
-4×4×2 hex mesh of a 2 cm box, order 2, over n ranks (``parallel/``): n
-cards over NCCL (``device=None``; fewer cards raise) or n gloo processes on
-the CPU (``device="cpu"``), and checks that the gathered result is finite.
+``dryrun_multichip(n, device=None)`` runs, over n ranks (``parallel/``),
+one sharded SDIRK33 step of the 4×4×2 hex mesh of a 2 cm box, order 2, and
+one sharded DG advection apply with its ghost-face exchange
+(``parallel/dg``) on the 4×4 quad mesh, order 1: n cards over NCCL
+(``device=None``; fewer cards raise) or n gloo processes on the CPU
+(``device="cpu"``), and checks that both gathered results are finite.
 """
 
 from __future__ import annotations
@@ -21,11 +23,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .fem.fespace import FESpace
+from .fem.fespace import FESpace, L2FESpace
 from .linalg import ode
-from .mesh.mesh import make_cartesian_3d
+from .mesh.mesh import make_cartesian_2d, make_cartesian_3d
 from .models import bioheat
+from .ops.dg_advection import project_l2
 from .parallel import bioheat as par_bio
+from .parallel import dg as par_dg
 from .parallel import launch
 from .utils.config import resolve_device
 
@@ -70,18 +74,38 @@ def _dryrun_rank(rank, world, device):
                         solver="sdirk33", rel_tol=1e-8, max_iter=100,
                         device=device)
     T, _ = sim.step(sim.T0, 0.0, 0.5)
-    return sim.gather(T)
+    return sim.gather(T), _dryrun_dg(device)
+
+
+def _dryrun_dg(device):
+    """The JAX dryrun's part (b): one sharded DG advection apply."""
+    dfes = L2FESpace(make_cartesian_2d(4, 4), 1)
+
+    def vel(x):
+        v = torch.zeros_like(x)
+        v[..., 0], v[..., 1] = 0.6, 0.4
+        return v
+
+    par = par_dg.setup(dfes, vel, inflow=lambda x: torch.zeros(x.shape[:-1],
+                                                               dtype=x.dtype),
+                       device=device)
+    u0 = par.scatter(project_l2(dfes, lambda X: torch.exp(
+        -40 * ((X[..., 0] - 0.4) ** 2 + (X[..., 1] - 0.5) ** 2)), device="cpu"))
+    return par.gather(par.mult(0.0, u0))
 
 
 def dryrun_multichip(n_devices: int, device=None) -> np.ndarray:
-    """One full sharded bioheat step over ``n_devices`` ranks (the bioheat
-    part of the JAX package's ``dryrun_multichip``; its NC, DG and vector-FE
-    sharded parts wait for ``parallel/pnc``, ``dg`` and ``pvecfe``).
-    Returns the gathered global temperature."""
+    """One full sharded bioheat step and one sharded DG advection apply over
+    ``n_devices`` ranks (the JAX package's ``dryrun_multichip`` parts but
+    (a) and (c), whose NC and vector-FE sharded paths wait for
+    ``parallel/pnc`` and ``pvecfe``).  Returns the gathered global
+    temperature."""
     if device is None and torch.cuda.device_count() < n_devices:
         raise RuntimeError(f"dryrun_multichip({n_devices}) needs {n_devices} "
                            f"cards; {torch.cuda.device_count()} are visible")
-    out = launch.spawn(_dryrun_rank, n_devices, device)[0]
+    out, du = launch.spawn(_dryrun_rank, n_devices, device)[0]
     if not np.isfinite(out).all():
         raise RuntimeError("sharded step produced non-finite values")
+    if not np.isfinite(du).all():
+        raise RuntimeError("sharded DG apply produced non-finite values")
     return out

@@ -44,6 +44,13 @@ def h1_nodes_1d(p: int) -> np.ndarray:
     return x
 
 
+@functools.lru_cache(maxsize=None)
+def l2_nodes_1d(p: int) -> np.ndarray:
+    """L2 (discontinuous) nodal points on [0,1]: Gauss-Legendre (p+1 points)."""
+    x, _ = gauss_legendre_1d(p + 1)
+    return x
+
+
 def _require_supported(geom: Geometry):
     if geom not in IS_TENSOR:
         raise NotImplementedError(f"{geom!r}: the port covers segments, "
@@ -136,16 +143,19 @@ def _lex_kron(B1: np.ndarray, dim: int, deriv_axis, G1=None) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def make_dof_to_quad(geom: Geometry, p: int, nq1d: int = None) -> DofToQuad:
-    """H1 order-p DofToQuad.  Tensor geometries take ``nq1d`` Gauss points
-    per direction (default p+2); simplices a rule exact to degree
-    2·nq1d − 1."""
+def make_dof_to_quad(geom: Geometry, p: int, nq1d: int = None,
+                     nodes: str = "h1") -> DofToQuad:
+    """Order-p DofToQuad.  Tensor geometries take ``nq1d`` Gauss points
+    per direction (default p+2) and their 1D nodes from ``nodes``: "h1"
+    Gauss-Lobatto, "l2" Gauss-Legendre; simplices a rule exact to degree
+    2·nq1d − 1 (their lattice nodes either way, as the JAX package)."""
     _require_supported(geom)
     if nq1d is None:
         nq1d = p + 2
     if IS_TENSOR[geom]:
         xq, _ = gauss_legendre_1d(nq1d)
-        B1, G1 = lagrange_matrices(h1_nodes_1d(p), xq)
+        nodes_1d = h1_nodes_1d(p) if nodes == "h1" else l2_nodes_1d(p)
+        B1, G1 = lagrange_matrices(nodes_1d, xq)
         pts, wts = tensor_rule(DIMENSION[geom], nq1d)
         return DofToQuad(geom=geom, order=p, tensor=True, points=pts,
                          weights=wts, B1=B1, G1=G1)

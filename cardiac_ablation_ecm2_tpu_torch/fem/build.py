@@ -6,8 +6,8 @@ factors of ``_bdr_geom_cached`` in its ``ops/bilinearform.py`` and
 The restrictions and the geometric factors are kept on the space itself,
 one per (device) and per (quadrature, dtype, device): the RF solve, the
 bioheat operator and the Arrhenius damage of the ablation app share them,
-as the JAX package's memoized functions let them.  They live as long as the
-space.
+as the JAX package's memoized functions let them; so are the DG face
+tables (host numpy, one per quadrature).  They live as long as the space.
 """
 
 from __future__ import annotations
@@ -91,6 +91,21 @@ def bdr_geom_for(fes, nq1d: Optional[int] = None, dtype=None, device=None):
                 device_basis(d2q, dt, device))
 
     return _kept(fes, "_bdr_geom", (nq1d, dt, device), make)
+
+
+def face_data_for(fes, nq1d: Optional[int] = None, with_gradients: bool = False):
+    """The DG face tables of the space's mesh and order
+    (``fem/faces.build_face_data``, host numpy), built once per nq1d and
+    kept on the space: the operators of one space (advection, SIPG, BR2,
+    elasticity, the sharded setups) share them.  A request without
+    gradients takes the tables with gradients when those exist."""
+    from .faces import build_face_data
+
+    cache = fes.__dict__.setdefault("_face_data", {})
+    if not with_gradients and (nq1d, True) in cache:
+        return cache[(nq1d, True)]
+    return _kept(fes, "_face_data", (nq1d, with_gradients), lambda: build_face_data(
+        fes.mesh, fes.order, nq1d, with_gradients=with_gradients))
 
 
 def basis_for(fes, dtype=None, device=None, nq1d: Optional[int] = None) -> DeviceBasis:

@@ -33,17 +33,15 @@ from ..mesh.mesh import Mesh
 from .basis import (
     DofToQuad,
     h1_nodes,
-    h1_nodes_1d,
-    lagrange_matrices,
     lattice_multi_index,
     make_dof_to_quad,
     simplex_basis_matrices,
 )
+from .faces import _eval_volume_basis
 from .geometry import (
     DIMENSION,
     EDGES,
     FACES,
-    IS_TENSOR,
     NUM_VERTS,
     REF_VERTS,
     Geometry,
@@ -315,23 +313,6 @@ def element_node_coords(mesh: Mesh, p: int) -> np.ndarray:
     return _batched_eval(B, mesh.vertices[mesh.elements])
 
 
-def _eval_volume_basis(geom: Geometry, p: int, pts: np.ndarray) -> np.ndarray:
-    """The order-p nodal volume basis at reference points → (npts, nd)
-    (the port's copy of ``fem/faces._eval_volume_basis``)."""
-    if IS_TENSOR.get(geom, False):
-        x1 = h1_nodes_1d(p)
-        dim = DIMENSION[geom]
-        per = [lagrange_matrices(x1, pts[:, d])[0] for d in range(dim)]
-        B = per[0]
-        if dim >= 2:
-            B = np.einsum("qi,qj->qji", per[0], per[1]).reshape(len(pts), -1)
-        if dim == 3:
-            B = np.einsum("qi,qj,qk->qkji", per[0], per[1], per[2]).reshape(
-                len(pts), -1)
-        return B
-    return simplex_basis_matrices(geom, p, pts)[0]
-
-
 def _batched_eval(B: np.ndarray, V: np.ndarray) -> np.ndarray:
     """(nd, k) eval matrix × (ne, k, s) batch → (ne, nd, s), as one GEMM."""
     ne, k, s = V.shape
@@ -349,3 +330,48 @@ def _q1_eval_matrix(geom: Geometry, pts: np.ndarray) -> np.ndarray:
         v = rv[:, d][None, :]
         B *= np.where(v > 0.5, x, 1.0 - x)
     return B
+
+
+@dataclasses.dataclass(eq=False)
+class L2FESpace:
+    """Discontinuous space (numpy copy of the JAX package's ``L2FESpace``;
+    MFEM's ``L2ElementRestriction``): every dof belongs to one element, so
+    the gather map is the identity reshape (ne, nd) and there are no
+    essential dofs.  The nodes are the H1 lattice's, as the JAX package's
+    (its ``d2q`` takes the default "h1" nodes)."""
+
+    mesh: Mesh
+    order: int
+    vdim: int = 1
+
+    ndof_scalar: int = dataclasses.field(init=False)
+    gather_map: np.ndarray = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        nd = len(lattice_multi_index(self.mesh.geom, self.order))
+        self.ndof_scalar = self.mesh.ne * nd
+        self.gather_map = np.arange(self.ndof_scalar, dtype=np.int32).reshape(
+            self.mesh.ne, nd)
+
+    @property
+    def ndof(self) -> int:
+        return self.ndof_scalar * self.vdim
+
+    @property
+    def nd_elem(self) -> int:
+        return self.gather_map.shape[1]
+
+    @functools.cached_property
+    def d2q(self) -> DofToQuad:
+        from ..utils.config import config
+
+        return make_dof_to_quad(self.mesh.geom, self.order,
+                                self.order + 1 + config.quad_extra)
+
+    def dof_to_quad(self, nq1d=None) -> DofToQuad:
+        if nq1d is None:
+            return self.d2q
+        return make_dof_to_quad(self.mesh.geom, self.order, nq1d)
+
+    def essential_dofs(self, bdr_marker=None) -> np.ndarray:
+        return np.zeros(0, dtype=np.int32)

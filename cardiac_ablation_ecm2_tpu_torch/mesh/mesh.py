@@ -490,12 +490,8 @@ def _refine_curved(mesh: Mesh) -> Mesh:
     child's lattice (exact: the composition is still degree q), and the
     fine vertices moved onto the curved geometry."""
     from ..fem.basis import h1_nodes, simplex_basis_matrices
-    from ..fem.fespace import (
-        _batched_eval,
-        _eval_volume_basis,
-        _node_index_lookup,
-        _q1_eval_matrix,
-    )
+    from ..fem.faces import _eval_volume_basis
+    from ..fem.fespace import _batched_eval, _node_index_lookup, _q1_eval_matrix
 
     geom, q = mesh.geom, mesh.nodes_order
     if geom not in (Geometry.SEGMENT, Geometry.SQUARE, Geometry.CUBE,

@@ -346,8 +346,46 @@ Phases, in order; any failure raises and the exit code is non-zero:
    a given block; the three constrained solves and
    BlockILU-PCG; three Navier–Stokes steps in 3D.
 
+33. DG advection, ex9 in 3D (``ops/dg_advection.DGAdvection``): first
+   12³ hexes at order 3 in float64, five RK3-SSP steps on CUDA and on the
+   CPU (1e-12); then ``make_cartesian_3d(48, 48, 48)``, L2 order 3 at 4
+   points a direction (110,592 hexes, 7,077,888 dofs, 324,864 interior
+   and 13,824 boundary faces), velocity (1, 0.5, 0.25), zero inflow, the
+   root ex9 example's pulse at (0.3, 0.3, 0.3), float32 RK3-SSP dt 1e-3, 100
+   steps: host face-table seconds, setup, s/step and ms a ``mult`` (CUDA
+   events), peak memory, the launches of ``take_rows``, ``segment_sum``
+   and ``gather_sum``; ∫u kept to 1e-4, u ≡ 1 with inflow 1 kept to 1e-5,
+   the float64 run within 1e-4·max|u|; then ``take_rows`` at every face
+   group and the one ``segment_sum`` at the operator's slot list bitwise
+   against their plain versions, float32 (timed) and float64.
+34. SIPG Poisson (``ops/dg_diffusion.DGDiffusion``) on the same mesh at
+   order 2, 3 points (2,985,984 dofs): f = 1, g = 0, penalty 10,
+   float32 Jacobi-PCG to 1e-6 on ``operator()``: host seconds, CG, solve
+   seconds, launches; the same solve in float64 with its true relative
+   residual (≤ 1e-5; a float32 iterate's stalls near eps32·‖A‖‖x‖) and
+   the float32 solution within 1e-4·max|u| of it;
+   ``fused_diffusion`` at the volume qdata against plain (1e-5·max|y|),
+   the face route's kernels bitwise; one BR2 apply at the same size,
+   timed in float32 and held in float64 to the same apply on the plain
+   versions (1e-10).
+35. ``parallel/dg`` at world size 1 over NCCL: [33]'s problem for 10
+   steps (within 1e-6·max|u| of the serial port) and [34]'s SIPG solve
+   (the serial CG count).
+36. Static condensation (``ops/condense``) of order-4 Poisson on
+   ``make_cartesian_3d(32, 32, 32)`` (2,146,689 dofs, 1,261,953 on the
+   interface), float64: the condensed Jacobi-PCG solve and its recovery
+   within 1e-8·max|u| of the uncondensed PA solve, launches, the
+   interface restriction's kernels bitwise; ex22 problem 0
+   (``ops/complex_fem``, Hermitian, order 2) on 256² and 512² quads
+   (1,050,625 complex dofs), Jacobi-GMRES(200): seconds, iterations, the
+   L2 error and its rate (≥ 2.6).
+37. The rest of the DG modules at the JAX tests' sizes, card against CPU,
+   float64 (1e-10, Krylov counts within 3): BR2, DG elasticity, Burgers
+   and Euler, the IMEX advection–diffusion, the three estimators; then
+   the face reads and sums of every card operator bitwise.
+
 Last, ``dryrun_multichip(torch.cuda.device_count())``: one spawned rank a
-card over NCCL.
+card over NCCL, the sharded bioheat step and a sharded DG apply.
 
 The last two lines of standard output are one JSON object describing the
 kernels and one JSON object with the device.  The ``gather_sum``,
@@ -378,7 +416,13 @@ level), the ``gather_sum`` entry ``refined_round_trip_*``; the
 ``fused_diffusion`` entry the same launch fields.  Every restriction entry
 carries ``hyperelastic_launches`` ([30]'s main solve), ``wave_launches``
 ([31]'s n=126 steps) and ``rest_launches`` ([32]'s card runs); the
-``fused_diffusion`` entry ``wave_launches`` and ``rest_launches``.
+``fused_diffusion`` entry ``wave_launches`` and ``rest_launches``.  The
+restriction, ``fused_diffusion`` and ``take_rows`` entries carry
+``dg_launches`` ([33]'s 100 float32 steps), ``sipg_launches`` ([34]'s
+solve), ``pdg_launches`` ([35]) and ``condense_launches`` ([36]'s
+condensed solve); the ``take_rows`` and ``segment_sum`` entries carry
+``dg_*`` fields, their float32 numbers at [33]'s interior-face read and
+slot list.
 """
 
 from __future__ import annotations
@@ -3490,7 +3534,7 @@ def phase_wave(kc, dev, hex_fes):
     return launches, dict(s_step=s_step, cg=counts)
 
 
-def both(label, fn, dev, rtol=1e-10):
+def both(label, fn, dev, rtol=1e-10, tag="[32]"):
     """``fn(device)`` on the card and on the CPU: every tensor it returns
     within ``rtol`` relative, every count equal (the Krylov counts that
     ``fn`` returns in ``Krylov`` or ``Newton``, inside Newton solves or on
@@ -3512,7 +3556,7 @@ def both(label, fn, dev, rtol=1e-10):
             return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
         return a == b
 
-    check(rel <= rtol and same(cg_, cc), f"[32] {label}: CUDA within {rtol:g} of "
+    check(rel <= rtol and same(cg_, cc), f"{tag} {label}: CUDA within {rtol:g} of "
           f"the CPU (each output: {', '.join(f'{r:.2e}' for r in rels)}), equal "
           f"counts ({cg_} / {cc})")
 
@@ -3528,7 +3572,7 @@ def both(label, fn, dev, rtol=1e-10):
         return c
 
     sides = "both" if cg_ == cc else f"on the card, {brief(cc)} on the CPU"
-    print(f"[32] {label}: rel diff {rel:.3e}, counts {brief(cg_)} {sides}, "
+    print(f"{tag} {label}: rel diff {rel:.3e}, counts {brief(cg_)} {sides}, "
           f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -3819,6 +3863,627 @@ def phase_rest(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# [33]-[37]: DG, static condensation and complex forms
+# ---------------------------------------------------------------------------
+
+#: [33] / [34]: the 48³ unit cube
+DG_N = 48
+#: [33]: RK3-SSP steps and step; [35] runs the first DG_PAR_STEPS
+DG_STEPS, DG_DT, DG_PAR_STEPS = 100, 1e-3, 10
+#: [34]: the SIPG solve's tolerance and cap (~15·n Jacobi-PCG steps at n³,
+#: order 2, on a CPU rehearsal up to n = 16)
+SIPG_TOL, SIPG_MAX_ITER = 1e-6, 10_000
+#: the kernels of the DG paths
+DG_KERNELS = ("take_rows", "segment_sum", "gather_sum", "gather_transpose",
+              "fused_diffusion")
+
+
+def dg_velocity(x):
+    """(1, 0.5, 0.25), or (1, 0.5) in 2D."""
+    v = torch.zeros_like(x)
+    v[..., 0], v[..., 1] = 1.0, 0.5
+    if x.shape[-1] == 3:
+        v[..., 2] = 0.25
+    return v
+
+
+def dg_pulse(x):
+    """The root ex9 example's Gaussian pulse, centred at (0.3, 0.3, 0.3)."""
+    return torch.exp(-sum((x[..., i] - 0.3) ** 2 for i in range(3)) / 0.005)
+
+
+def dg_zero(x):
+    return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+
+
+def dg_one(x):
+    return torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
+
+
+def dg_launches():
+    got = main_path_launches()
+    return {k: got[k] for k in DG_KERNELS}
+
+
+def rk3_steps(op, u, n, t=0.0, dt=DG_DT):
+    from cardiac_ablation_ecm2_tpu_torch.linalg import ode
+
+    solver = ode.select("rk3_ssp")
+    for _ in range(n):
+        u, t = solver.step(op, u, t, dt)
+    return u
+
+
+def check_face_route(kc, F, tag, label, seed, timed=False, tables=()):
+    """``take_rows`` at every face group of the ``FaceSum`` ``F`` (on seeded
+    random element arrays, and on each (name, table) of ``tables``, rows
+    read by the path such as BR2's mass inverses) and ``segment_sum`` at
+    every slot list ``F`` built (the apply's, a right-hand side's),
+    bitwise against their plain versions, float32 and float64; with
+    ``timed`` the float32 interior-face read and the apply's sum are timed
+    against plain and the library calls (``index_select``,
+    ``index_add_``)."""
+    from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
+    from cardiac_ablation_ecm2_tpu_torch.ops import gather_probes as gp
+
+    gen = torch.Generator(device=kc.dev).manual_seed(seed)
+    full = (True,) * len(F.idx)
+    F.slots(full)
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype)[6:]
+        t = timed and dtype == torch.float32
+        u = torch.randn(F.ne, F.width, generator=gen, device=kc.dev, dtype=dtype)
+        es = u.element_size()
+        for name, table in (("", u),) + tuple(tables):
+            table = table.to(dtype).reshape(table.shape[0], -1).contiguous()
+            for g in range(1, len(F.idx)):
+                idx = F.idx[g]
+                if idx.numel() == 0:           # world 1 has no cross faces
+                    continue
+                rows = idx.long()
+                least = idx.numel() * (4 + 2 * table.shape[1] * es)
+                kc.compare("take_rows", f"{label} {name}face group {g} {dt}", gp.take_rows,
+                           gp.take_rows_plain, (table, idx), tag=tag,
+                           library=lambda: table.index_select(0, rows),
+                           **(dict(least=least) if t and g == 1 and not name else {}))
+        for present, (slots, offsets) in F.slot_lists.items():
+            nseg, nslot = offsets.numel() - 1, slots.numel()
+            src = torch.randn(nslot, generator=gen, device=kc.dev, dtype=dtype)
+            timed_sum = t and present == full
+            extra = {}
+            if timed_sum:
+                target = torch.empty(nslot, dtype=torch.int64, device=kc.dev)
+                target[slots.long()] = torch.repeat_interleave(
+                    torch.arange(nseg, device=kc.dev), offsets[1:] - offsets[:-1])
+                extra = dict(least=nslot * (4 + es) + (nseg + 1) * 8 + nseg * es,
+                             library=lambda: torch.zeros(
+                                 nseg, dtype=src.dtype, device=src.device).index_add_(
+                                     0, target, src))
+            what = "face sum" if present == full else "face sum " + "".join(
+                "1" if p else "0" for p in present)
+            kc.compare("segment_sum", f"{label} {what} {dt}", bg.segment_sum,
+                       bg.segment_sum_plain, (src, slots, offsets), tag=tag, **extra)
+            del src
+        del u
+    torch.cuda.empty_cache()
+
+
+def dg_mass(op, u):
+    """∫u (float64 sums of the float32 or float64 values)."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import geom_factors_for
+    from cardiac_ablation_ecm2_tpu_torch.fem.quadinterp import eval_values
+
+    gf = geom_factors_for(op.fes, op.db.nq1d, op.dtype, op.device)
+    uq = eval_values(op.db, u.view(op.ne, -1))
+    return float((gf.wdet.double() * uq.double()).sum())
+
+
+def phase_dg_advection(kc, dev):
+    """[33] DG advection on the 48³ cube, order 3; returns the space, the
+    launches, the serial float32 state after DG_PAR_STEPS steps and the
+    kernels line's numbers."""
+    import copy
+
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import face_data_for
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import L2FESpace
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2_tpu_torch.ops.dg_advection import DGAdvection, project_l2
+
+    t_phase = time.perf_counter()
+    small = L2FESpace(make_cartesian_3d(12, 12, 12), 3)
+    outs = []
+    for d in (dev, "cpu"):
+        op = DGAdvection(small, dg_velocity, inflow=dg_zero, nq1d=4,
+                         dtype="float64", device=d)
+        outs.append(rk3_steps(op, project_l2(small, dg_pulse, "float64", d), 5).cpu())
+    rel = rel_diff(outs[0], outs[1])
+    check(rel <= 1e-12, f"[33] 12^3 order 3 f64: CUDA within 1e-12 of the CPU ({rel:.2e})")
+    print(f"[33] 12^3 order 3 f64 ({small.ndof} dofs), 5 RK3 steps: CUDA vs CPU "
+          f"rel diff {rel:.3e}")
+
+    mesh = make_cartesian_3d(DG_N, DG_N, DG_N)
+    fes = L2FESpace(mesh, 3)
+    check((mesh.ne, fes.ndof) == (110_592, 7_077_888), "[33] 48^3 order 3 sizes")
+    t0 = time.perf_counter()
+    fd = face_data_for(fes, 4)
+    host_s = time.perf_counter() - t0
+    check((len(fd.elem0), len(fd.b_elem)) == (324_864, 13_824), "[33] face counts")
+    del fd
+    start_main_path()
+    t0 = time.perf_counter()
+    op = DGAdvection(fes, dg_velocity, inflow=dg_zero, nq1d=4, dtype="float32",
+                     device=dev)
+    u0 = project_l2(fes, dg_pulse, "float32", dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    u = rk3_steps(op, u0, 1)                           # warm-up step
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    u = u0
+    a.record()
+    u = rk3_steps(op, u, DG_PAR_STEPS)
+    u_par = u.clone()
+    u = rk3_steps(op, u, DG_STEPS - DG_PAR_STEPS, t=DG_PAR_STEPS * DG_DT)
+    b.record()
+    b.synchronize()
+    s_step = a.elapsed_time(b) / 1e3 / DG_STEPS
+    launches = dg_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms_mult = time_ms(lambda: op.mult(0.0, u), reps=10)
+    check(u.shape == (fes.ndof,) and bool(torch.isfinite(u).all()),
+          "[33] finite u of the expected shape")
+    m0, m1 = dg_mass(op, u0), dg_mass(op, u)
+    check(abs(m1 - m0) <= 1e-4 * abs(m0), f"[33] integral of u kept to 1e-4 "
+          f"({m0:.9e} -> {m1:.9e})")
+    ones = copy.copy(op)
+    ones.g_in = torch.ones_like(op.g_in)
+    one = rk3_steps(ones, torch.ones(fes.ndof, device=dev), DG_PAR_STEPS)
+    fs = float((one - 1.0).abs().max())
+    for k in ("take_rows", "segment_sum"):
+        check(launches[k] > 0, f"[33] the DG steps launched {k}")
+    print(f"[33] DG advection 48^3 order 3 nq1d 4 f32: {mesh.ne} hexes, {fes.ndof} "
+          f"dofs, 324,864 interior + 13,824 boundary faces; host face tables "
+          f"{host_s:.2f} s, device setup {setup_s:.2f} s")
+    print(f"[33] {DG_STEPS} RK3-SSP steps dt {DG_DT}: s/step {s_step:.6f} (CUDA "
+          f"events), ms per mult {ms_mult:.4f}, peak {peak:.3f} GiB; launches "
+          f"take_rows {launches['take_rows']}, segment_sum {launches['segment_sum']}, "
+          f"gather_sum {launches['gather_sum']}")
+    print(f"[33] integral of u {m0:.9e} -> {m1:.9e} (rel {abs(m1 - m0) / abs(m0):.2e}), "
+          f"max u {float(u.max()):.6f}; free stream in float32 max|u - 1| "
+          f"{fs:.2e} after {DG_PAR_STEPS} steps")
+    del ones
+    op64 = DGAdvection(fes, dg_velocity, inflow=dg_zero, nq1d=4, dtype="float64",
+                       device=dev)
+    u64 = rk3_steps(op64, project_l2(fes, dg_pulse, "float64", dev), DG_STEPS)
+    d64 = float((u.double() - u64).abs().max() / u64.abs().max())
+    ones64 = copy.copy(op64)
+    ones64.g_in = torch.ones_like(op64.g_in)
+    one = rk3_steps(ones64, torch.ones(fes.ndof, dtype=torch.float64, device=dev),
+                    DG_PAR_STEPS)
+    fs64 = float((one - 1.0).abs().max())
+    check(fs64 <= 1e-5, f"[33] float64: u = 1 with inflow 1 kept to 1e-5 ({fs64:.2e})")
+    check(d64 <= 1e-4, f"[33] float32 within 1e-4 max|u| of float64 ({d64:.2e})")
+    print(f"[33] float32 vs float64 run: {d64:.3e} of max|u|; free stream in "
+          f"float64 max|u - 1| {fs64:.2e} after {DG_PAR_STEPS} steps")
+    del op64, u64, ones64, one
+    y1, y2 = op.mult(0.0, u), op.mult(0.0, u)
+    check(torch.equal(y1, y2), "[33] two applies bitwise equal")
+    check_face_route(kc, op.faces, "[33]", "48^3 order 3", seed=33, timed=True)
+    numbers = {k: kc.times[f"48^3 order 3 {w} float32"] for k, w in (
+        ("take_rows", "face group 1"), ("segment_sum", "face sum"))}
+    del op, u, u0, y1, y2
+    torch.cuda.empty_cache()
+    print(f"[33] phase {time.perf_counter() - t_phase:.1f} s")
+    return fes, launches, u_par, numbers
+
+
+class plain_kernels:
+    """Within the block, the DG face route and the diffusion apply take
+    the kernels' plain versions (on CUDA tensors too)."""
+
+    def __enter__(self):
+        from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
+        from cardiac_ablation_ecm2_tpu_torch.ops import diffusion as dmod
+        from cardiac_ablation_ecm2_tpu_torch.ops import face_sum
+        from cardiac_ablation_ecm2_tpu_torch.ops import fused_diffusion as fd
+        from cardiac_ablation_ecm2_tpu_torch.ops import gather_probes as gp
+
+        self.saved = [(face_sum, "take_rows", gp.take_rows_plain),
+                      (face_sum, "segment_sum", bg.segment_sum_plain),
+                      (dmod, "diffusion_apply", fd.diffusion_apply_plain)]
+        self.saved = [(m, n, getattr(m, n), f) for m, n, f in self.saved]
+        for m, n, _, f in self.saved:
+            setattr(m, n, f)
+
+    def __exit__(self, *exc):
+        for m, n, old, _ in self.saved:
+            setattr(m, n, old)
+
+
+def sipg_rhs(op, f=1.0):
+    """∫ f v + the weak Dirichlet g = 0 terms."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import geom_factors_for
+    from cardiac_ablation_ecm2_tpu_torch.fem.quadinterp import eval_values_t
+
+    gf = geom_factors_for(op.fes, op.db.nq1d, op.dtype, op.device)
+    return (eval_values_t(op.db, gf.wdet * f).reshape(-1)
+            + op.dirichlet_rhs(dg_zero))
+
+
+def phase_sipg(kc, dev):
+    """[34] SIPG Poisson on the 48³ cube, order 2; returns the space, the
+    launches, the CG count and the solution."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import face_data_for
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import L2FESpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2_tpu_torch.ops.dg_diffusion import DGDiffusion, DGDiffusionBR2
+    from cardiac_ablation_ecm2_tpu_torch.utils.config import elapsed
+
+    t_phase = time.perf_counter()
+    fes = L2FESpace(make_cartesian_3d(DG_N, DG_N, DG_N), 2)
+    check(fes.ndof == 2_985_984, "[34] 48^3 order 2: 2,985,984 dofs")
+    t0 = time.perf_counter()
+    face_data_for(fes, 3, with_gradients=True)
+    host_s = time.perf_counter() - t0
+    start_main_path()
+    t0 = time.perf_counter()
+    op = DGDiffusion(fes, kappa=1.0, penalty=10.0, nq1d=3, dtype="float32", device=dev)
+    A = op.operator()
+    b = sipg_rhs(op)
+    diag = A.diagonal()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, info = cg(A.mult, b, M=lambda r: r / diag, rel_tol=SIPG_TOL,
+                 max_iter=SIPG_MAX_ITER)
+    solve_s = elapsed(t0, dev)
+    launches = dg_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(info.converged and x.shape == (fes.ndof,) and bool(torch.isfinite(x).all()),
+          "[34] converged, finite u of the expected shape")
+    for k in ("take_rows", "segment_sum", "fused_diffusion"):
+        check(launches[k] > 0, f"[34] the SIPG solve launched {k}")
+    # the float32 iterate's true residual stalls far above 1e-5 (x in
+    # float32 alone leaves eps32·‖A‖‖x‖; 4.6e-4 at 16³ on a CPU rehearsal):
+    # the residual bound is held on the same solve in float64, and the
+    # float32 solution to the float64 one
+    op64 = DGDiffusion(fes, kappa=1.0, penalty=10.0, nq1d=3, dtype="float64",
+                       device=dev)
+    b64 = sipg_rhs(op64)
+    d64 = op64.diagonal()
+    t0 = time.perf_counter()
+    x64, info64 = cg(op64.mult, b64, M=lambda r: r / d64, rel_tol=SIPG_TOL,
+                     max_iter=SIPG_MAX_ITER)
+    s64 = elapsed(t0, dev)
+    res = float(torch.linalg.norm(b64 - op64.mult(x64)) / torch.linalg.norm(b64))
+    res32 = float(torch.linalg.norm(b64 - op64.mult(x.double())) / torch.linalg.norm(b64))
+    dx = float((x.double() - x64).abs().max() / x64.abs().max())
+    del op64, b64, d64, x64
+    check(info64.converged and res <= 1e-5,
+          f"[34] float64 solve: true relative residual <= 1e-5 ({res:.2e})")
+    check(dx <= 1e-4, f"[34] float32 solution within 1e-4 max|u| of float64 ({dx:.2e})")
+    print(f"[34] SIPG Poisson 48^3 order 2 nq1d 3 f32, f = 1, g = 0, penalty 10: "
+          f"{fes.ndof} dofs; host face tables {host_s:.2f} s, device setup "
+          f"{setup_s:.2f} s; Jacobi-PCG to {SIPG_TOL:g}: {info.iterations} "
+          f"iterations in {solve_s:.3f} s ({solve_s / info.iterations * 1e3:.3f} ms "
+          f"each), peak {peak:.3f} GiB; its true relative residual {res32:.3e} "
+          f"(float64 evaluation)")
+    print(f"[34] the same solve in float64: {info64.iterations} iterations in "
+          f"{s64:.3f} s, true relative residual {res:.3e}; the float32 solution "
+          f"{dx:.3e} of max|u| off it")
+    print(f"[34] launches: " + ", ".join(f"{k} {launches[k]}" for k in DG_KERNELS))
+    gen = torch.Generator(device=dev).manual_seed(34)
+    e = torch.randn(fes.mesh.ne, fes.nd_elem, generator=gen, device=dev)
+    check_diffusion("SIPG 48^3 order 2 volume qdata", op.db, op.vol_qd, e, tag="[34]")
+    check(torch.equal(A.mult(x), A.mult(x)), "[34] two applies bitwise equal")
+    check_face_route(kc, op.faces, "[34]", "48^3 order 2", seed=340)
+    del op, A, b, diag, e
+    # BR2: the float32 apply timed; the apply held to its plain path in
+    # float64 (in float32 fused_diffusion's rounding, 2e-7 of the volume
+    # term, is 4.4e-5 of the cancelling sum at this size)
+    br = DGDiffusionBR2(fes, kappa=1.0, nq1d=3, dtype="float32", device=dev)
+    br_ms = time_ms(lambda: br.mult(x), reps=5)
+    del br
+    br = DGDiffusionBR2(fes, kappa=1.0, nq1d=3, dtype="float64", device=dev)
+    y = br.mult(x.double())
+    with plain_kernels():
+        y_plain = br.mult(x.double())
+    d = float((y - y_plain).abs().max() / y_plain.abs().max())
+    check(d <= 1e-10, f"[34] BR2 apply within 1e-10 of its plain path ({d:.2e})")
+    check_face_route(kc, br.faces, "[34]", "BR2 48^3 order 2", seed=341,
+                     tables=(("M^-1 rows ", br.Minv),))
+    print(f"[34] BR2 apply (eta {br.eta:g}) at 2,985,984 dofs: float32 {br_ms:.3f} ms; "
+          f"float64 {d:.3e} of max|y| off its plain path")
+    del br, y, y_plain
+    torch.cuda.empty_cache()
+    print(f"[34] phase {time.perf_counter() - t_phase:.1f} s")
+    return fes, launches, info.iterations, x
+
+
+def _par_dg_rank(rank, world, d, adv_fes, sipg_fes):
+    """[35]'s rank body: [33]'s problem for DG_PAR_STEPS steps and [34]'s
+    SIPG solve, sharded."""
+    from cardiac_ablation_ecm2_tpu_torch.ops.dg_advection import project_l2
+    from cardiac_ablation_ecm2_tpu_torch.parallel import dg as pdg
+
+    t0 = time.perf_counter()
+    par = pdg.setup(adv_fes, dg_velocity, inflow=dg_zero, nq1d=4, dtype="float32",
+                    device=d)
+    u = par.scatter(project_l2(adv_fes, dg_pulse, "float32", d))
+    u = rk3_steps(par, u, DG_PAR_STEPS)
+    s = pdg.setup_sipg(sipg_fes, kappa=1.0, penalty=10.0, g=dg_zero, f_rhs=dg_one,
+                       nq1d=3, dtype="float32", device=d)
+    x, info = s.solve(rel_tol=SIPG_TOL, max_iter=SIPG_MAX_ITER)
+    torch.cuda.synchronize()
+    return (par.gather(u), s.gather(x), info.iterations, time.perf_counter() - t0,
+            (par.faces, s.faces))
+
+
+def phase_par_dg(kc, dev, adv_fes, u_ser, sipg_fes, sipg_its, x_ser):
+    """[35] parallel/dg at world size 1 over NCCL against [33] and [34];
+    then the ranks' face reads and sums bitwise against plain."""
+    from cardiac_ablation_ecm2_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    start_main_path()
+    u, x, its, secs, faces = launch.run_single(
+        lambda r, w, d: _par_dg_rank(r, w, d, adv_fes, sipg_fes))
+    launches = dg_launches()
+    du = float(np.abs(u - u_ser.double().cpu().numpy()).max() / float(u_ser.abs().max()))
+    dx = float(np.abs(x - x_ser.double().cpu().numpy()).max() / float(x_ser.abs().max()))
+    check(du <= 1e-6, f"[35] sharded advection within 1e-6 of the serial ({du:.2e})")
+    check(its == sipg_its, f"[35] sharded SIPG takes the serial CG count ({its}, "
+          f"{sipg_its})")
+    for k in ("take_rows", "segment_sum", "fused_diffusion"):
+        check(launches[k] > 0, f"[35] the sharded runs launched {k}")
+    print(f"[35] parallel/dg, world 1 over NCCL: {DG_PAR_STEPS} steps of [33] within "
+          f"{du:.3e} of the serial, SIPG {its} CG (serial {sipg_its}), u {dx:.3e} off; "
+          f"{secs:.1f} s in the rank; launches " + ", ".join(
+              f"{k} {launches[k]}" for k in DG_KERNELS))
+    for F, what in zip(faces, ("sharded 48^3 order 3", "sharded 48^3 order 2")):
+        check_face_route(kc, F, "[35]", what, seed=350)
+    del faces
+    print(f"[35] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _masked(op, mask):
+    return lambda v: op(v * (1 - mask)) * (1 - mask) + v * mask
+
+
+def ex22_solve(n, dev, order=2, omega=2.0, sigma=1.0):
+    """ex22 problem 0 on n × n quads, Hermitian, float64: (L2 error, GMRES
+    iterations, seconds, complex dofs)."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import gmres
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_2d
+    from cardiac_ablation_ecm2_tpu_torch.ops import complex_fem as cf
+    from cardiac_ablation_ecm2_tpu_torch.ops.linearform import domain_lf
+    from cardiac_ablation_ecm2_tpu_torch.utils.config import elapsed
+
+    fes = FESpace(make_cartesian_2d(n, n), order)
+    amp = 1.0 + 0.5j
+    lam = 2 * np.pi ** 2 - omega ** 2 + 1j * omega * sigma
+    s = lambda x: torch.sin(np.pi * x[..., 0]) * torch.sin(np.pi * x[..., 1])
+    kw = dict(dtype="float64", device=dev)
+    sq = cf.SesquilinearForm(fes, device=dev)
+    sq.add_domain_integrator("diffusion", 1.0, None)
+    sq.add_domain_integrator("mass", -omega ** 2, omega * sigma)
+    A = sq.assemble("float64")
+    b = cf.cstack(domain_lf(fes, lambda x: (lam * amp).real * s(x), **kw),
+                  domain_lf(fes, lambda x: (lam * amp).imag * s(x), **kw))
+    ess = fes.essential_dofs([1, 2, 3, 4])
+    Ac, B = cf.form_complex_linear_system(A, ess, torch.zeros_like(b), b)
+    mask = torch.zeros(fes.ndof, dtype=torch.float64, device=dev)
+    mask[torch.as_tensor(ess, dtype=torch.int64, device=dev)] = 1.0
+    M = cf.complex_jacobi(A, ess_mask=mask)
+    t0 = time.perf_counter()
+    z, info = gmres(Ac.mult, B, M=M, rel_tol=1e-12, max_iter=4000, restart=200)
+    secs = elapsed(t0, dev)
+    check(info.converged and bool(torch.isfinite(z).all()), f"[36] ex22 {n}^2 converged")
+    u = cf.ComplexGridFunction.from_vec(fes, z)
+    err = u.l2_error(lambda x: amp.real * s(x), lambda x: amp.imag * s(x))
+    return err, info.iterations, secs, fes.ndof
+
+
+def phase_condense_complex(kc, dev):
+    """[36] static condensation of order-4 Poisson on 32³ and ex22 problem
+    0 on 256² and 512² quads; returns the condensed solve's launches."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import restriction_for
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
+    from cardiac_ablation_ecm2_tpu_torch.ops.condense import (
+        StaticCondensation,
+        element_matrices,
+    )
+    from cardiac_ablation_ecm2_tpu_torch.ops.linearform import domain_lf
+    from cardiac_ablation_ecm2_tpu_torch.utils.config import elapsed
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fes = FESpace(make_cartesian_3d(32, 32, 32), 4)
+    host_s = time.perf_counter() - t0
+    check(fes.ndof == 2_146_689, "[36] 32^3 order 4: 2,146,689 dofs")
+    kw = dict(dtype=torch.float64, device=dev)
+    b = domain_lf(fes, lambda x: torch.sin(x[..., 0]) + x[..., 1] * x[..., 2], **kw)
+    ess = torch.as_tensor(fes.essential_dofs(None), dtype=torch.int64, device=dev)
+    mask = torch.zeros(fes.ndof, **kw)
+    mask[ess] = 1.0
+    A = BilinearForm(fes, dev).add_domain_integrator("diffusion").assemble("float64")
+    dA = torch.where(mask > 0, 1.0, A.diagonal())
+    t0 = time.perf_counter()
+    x_full, info_full = cg(_masked(A.mult, mask), b * (1 - mask), M=lambda r: r / dA,
+                           rel_tol=1e-12, max_iter=20_000)
+    full_s = elapsed(t0, dev)
+    del A, dA
+    start_main_path()
+    t0 = time.perf_counter()
+    sc = StaticCondensation(fes, element_matrices(fes, diffusion_coeff=1.0, **kw))
+    sc.A_e = None                                   # the (ne, nd, nd) matrices
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    smask = torch.zeros(sc.n_iface, **kw)
+    smask[torch.as_tensor(sc.essential_dofs(None), dtype=torch.int64, device=dev)] = 1.0
+    dS = torch.where(smask > 0, 1.0, sc.diagonal())
+    t0 = time.perf_counter()
+    xf, info = cg(_masked(sc.mult, smask), sc.reduce_rhs(b) * (1 - smask),
+                  M=lambda r: r / dS, rel_tol=1e-12, max_iter=20_000)
+    x_cond = sc.recover(xf, b)
+    cond_s = elapsed(t0, dev)
+    launches = dg_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    err = float((x_full - x_cond).abs().max() / x_full.abs().max())
+    check(sc.n_iface == 1_261_953, "[36] 1,261,953 interface dofs")
+    check(info.converged and info_full.converged, "[36] both solves converged")
+    check(err <= 1e-8, f"[36] condensed solve within 1e-8 max|u| of the full ({err:.2e})")
+    for k in ("gather_sum", "segment_sum"):
+        check(launches[k] > 0, f"[36] the condensed solve launched {k}")
+    print(f"[36] condensed Poisson 32^3 order 4 f64: {fes.ndof} dofs, {sc.n_iface} on "
+          f"the interface; host FESpace {host_s:.2f} s; uncondensed Jacobi-PCG "
+          f"{info_full.iterations} CG in {full_s:.3f} s; condensation setup "
+          f"{setup_s:.2f} s, condensed {info.iterations} CG + recovery in "
+          f"{cond_s:.3f} s, {err:.3e} of max|u| off the full solve, peak "
+          f"{peak:.3f} GiB; launches " + ", ".join(f"{k} {launches[k]}"
+                                                   for k in DG_KERNELS))
+    check_restriction(kc, sc.r_f, "condensed interface ", "[36]", seed=36)
+    del sc, x_full, x_cond, xf, b, mask, smask, dS
+    restriction_for(fes, dev)
+    fes.__dict__.pop("_restrictions", None)
+    fes.__dict__.pop("_geom_factors", None)
+    torch.cuda.empty_cache()
+    errs = {}
+    for n in (256, 512):
+        err, its, secs, ndof = ex22_solve(n, dev)
+        errs[n] = err
+        print(f"[36] ex22 problem 0, {n}^2 quads order 2 f64 (Hermitian): {ndof} "
+              f"complex dofs, Jacobi-GMRES(200) {its} iterations in {secs:.3f} s, "
+              f"L2 error {err:.6e}")
+        torch.cuda.empty_cache()
+    rate = float(np.log2(errs[256] / errs[512]))
+    check(rate >= 2.6, f"[36] ex22 L2 rate 256^2 -> 512^2 >= 2.6 ({rate:.3f})")
+    print(f"[36] ex22 L2 rate {rate:.3f}")
+    print(f"[36] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def rest_dg(d, keep):
+    """[37]'s cases, each fn() -> (tensors, counts) on device ``d``;
+    ``keep(op)`` is given each DG operator built."""
+    from cardiac_ablation_ecm2_tpu_torch.fem import estimators
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace, L2FESpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg import ode
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_2d
+    from cardiac_ablation_ecm2_tpu_torch.models.advection_diffusion import (
+        DGAdvectionDiffusion,
+    )
+    from cardiac_ablation_ecm2_tpu_torch.ops.dg_advection import project_l2
+    from cardiac_ablation_ecm2_tpu_torch.ops.dg_diffusion import DGDiffusionBR2
+    from cardiac_ablation_ecm2_tpu_torch.ops.dg_elasticity import DGElasticity
+    from cardiac_ablation_ecm2_tpu_torch.ops.hyperbolic import HyperbolicDG
+
+    kw = dict(dtype=torch.float64, device=d)
+    sines = lambda x: 2 * np.pi ** 2 * torch.sin(np.pi * x[..., 0]) * torch.sin(
+        np.pi * x[..., 1])
+
+    def br2():
+        fes = L2FESpace(make_cartesian_2d(8, 8), 2)
+        op = keep(DGDiffusionBR2(fes, **kw))
+        from cardiac_ablation_ecm2_tpu_torch.fem.build import geom_factors_for
+        from cardiac_ablation_ecm2_tpu_torch.fem.quadinterp import eval_values_t
+
+        gf = geom_factors_for(fes, None, "float64", d)
+        b = eval_values_t(op.db, gf.wdet * sines(gf.x)).reshape(-1) + op.dirichlet_rhs(
+            lambda x: torch.zeros(x.shape[:-1], dtype=x.dtype))
+        dg = op.diagonal()
+        x, info = cg(op.mult, b, M=lambda r: r / dg, rel_tol=1e-11, max_iter=4000)
+        return [x], Krylov([info.iterations])
+
+    def elasticity():
+        fes = L2FESpace(make_cartesian_2d(4, 4), 2)
+        A = keep(DGElasticity(fes, lam=1.5, mu=1.0, **kw))
+        b = A.dirichlet_rhs(lambda x: torch.stack(
+            [0.3 * x[..., 0] - 0.2 * x[..., 1] + 0.1, 0.5 * x[..., 1] + 0.4 * x[..., 0]], -1))
+        dg = A.diagonal()
+        u, info = cg(A.mult, b, M=lambda r: r / dg, rel_tol=1e-13, max_iter=6000)
+        return [u], Krylov([info.iterations])
+
+    def hyperbolic():
+        out = []
+        for law, n in (("burgers", 24), ("euler", 6)):
+            fes = L2FESpace(make_cartesian_2d(n, 4 if law == "burgers" else n,
+                                              2.0 if law == "burgers" else 1.0,
+                                              0.2 if law == "burgers" else 1.0), 1)
+            op = keep(HyperbolicDG(fes, law=law, **kw))
+            if law == "burgers":
+                u = project_l2(fes, lambda x: 0.5 + 0.4 * torch.sin(np.pi * x[..., 0]), **kw)
+            else:                        # density ripples at pressure 1
+                rho = 1.0 + 0.1 * torch.arange(fes.ndof, **kw).remainder(7) / 7
+                E = 1.0 / 0.4 + 0.5 * rho * 0.13
+                u = torch.stack([rho, 0.3 * rho, 0.2 * rho, E], -1).reshape(-1)
+            out.append(rk3_steps(op, u, 5, dt=0.005))
+        return out, 0
+
+    def imex():
+        fes = L2FESpace(make_cartesian_2d(12, 12), 1)
+        op = DGAdvectionDiffusion(fes, dg_velocity, epsilon=5e-3, rel_tol=1e-12, **kw)
+        keep(op.adv)
+        keep(op.dif)
+        u = project_l2(fes, lambda x: torch.exp(-((x[..., 0] - 0.4) ** 2
+                                                  + (x[..., 1] - 0.5) ** 2) / 0.01), **kw)
+        step = ode.select("imex_rk2")
+        t = 0.0
+        for _ in range(4):
+            u, t = step.step(op, u, t, 0.01)
+        return [u], Krylov(op.cg_iterations)
+
+    def estimates():
+        fes = FESpace(make_cartesian_2d(16, 16), 2)
+        u = torch.as_tensor(np.sin(3 * fes.dof_coords[:, 0]) * np.exp(fes.dof_coords[:, 1]),
+                            device=d)
+        return [torch.as_tensor(f(fes, u)) for f in (
+            estimators.zz_estimator, estimators.kelly_estimator,
+            estimators.lszz_estimator)], 0
+
+    return br2, elasticity, hyperbolic, imex, estimates
+
+
+REST_DG = ("BR2 Poisson 8x8 order 2", "DG elasticity 4x4 order 2",
+           "Burgers 24x4 and Euler 6x6, 5 RK3 steps", "IMEX advection-diffusion 12x12",
+           "ZZ, Kelly and LSZZ estimators 16x16")
+
+
+def phase_rest_dg(kc, dev):
+    """[37] the rest of the DG modules on the card against the CPU, then every
+    face table of the card's operators bitwise against plain; returns the
+    launches of the card's runs."""
+    t0 = time.perf_counter()
+    start_main_path()
+    ops = []
+
+    def keep(op):
+        if op.device.type == "cuda":
+            ops.append(op)
+        return op
+
+    for i, label in enumerate(REST_DG):
+        both(label, lambda d: rest_dg(d, keep)[i](), dev, tag="[37]")
+    launches = dg_launches()
+    print(f"[37] launches on the card's runs: "
+          + ", ".join(f"{k} {launches[k]}" for k in DG_KERNELS))
+    for k in ("take_rows", "segment_sum", "gather_sum"):
+        check(launches[k] > 0, f"[37] the card's runs launched {k}")
+    for n, op in enumerate(ops):
+        check_face_route(kc, op.faces, "[37]", type(op).__name__, seed=370 + n,
+                         tables=(("M^-1 rows ", op.Minv),)
+                         if type(op).__name__ == "DGDiffusionBR2" else ())
+    print(f"[37] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def phase_dryrun():
     """``dryrun_multichip`` over every visible card (one spawned rank a
     card, NCCL)."""
@@ -3909,9 +4574,21 @@ def main():
     wave_launches, _ = phase_wave(kc, dev, hex_fes)
     del hex_fes
     rest_launches = phase_rest(dev)
+    adv_fes, dg_launch, u_par, dg_numbers = phase_dg_advection(kc, dev)
+    sipg_fes, sipg_launch, sipg_its, x_sipg = phase_sipg(kc, dev)
+    pdg_launch = phase_par_dg(kc, dev, adv_fes, u_par, sipg_fes, sipg_its, x_sipg)
+    del adv_fes, sipg_fes, u_par, x_sipg
+    condense_launch = phase_condense_complex(kc, dev)
+    phase_rest_dg(kc, dev)
     phase_dryrun()
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
+
+    def dg_path_launches(k):
+        """[33]-[36]'s launches of kernel k."""
+        return dict(dg_launches=dg_launch[k], sipg_launches=sipg_launch[k],
+                    pdg_launches=pdg_launch[k], condense_launches=condense_launch[k])
+
     # the restriction's kernels at their hex main-path shapes, float32: the
     # element-major L->E (the residual's), the L->E into (nd, ne) and the
     # E->L from it (one CG apply's round trip)
@@ -3960,12 +4637,21 @@ def main():
                      refine_launches=refine_launches[k],
                      example_launches=example_launches[k],
                      hyperelastic_launches=hyper_launches[k],
-                     wave_launches=wave_launches[k], rest_launches=rest_launches[k])
+                     wave_launches=wave_launches[k], rest_launches=rest_launches[k],
+                     **dg_path_launches(k))
         if k in bp_rows:
             entry.update({f"refined_{f}": kc.times[f"refined fine {bp_rows[k]}"][f]
                           for f in ("ms", "plain_ms", "bound_ms", "library_ms")})
     restriction[0].update({f"refined_round_trip_{f}": v
                            for f, v in refined_rt.items()})
+    # the DG face route's float32 numbers at [33]'s interior-face read
+    # (324,864 rows of 64) and slot list (49.5M slots into 7,077,888 dofs)
+    restriction[2].update({f"dg_{f}": dg_numbers["segment_sum"][f]
+                           for f in ("ms", "plain_ms", "bound_ms", "library_ms")})
+    probe_numbers["take_rows"].update(
+        {f"dg_{f}": dg_numbers["take_rows"][f]
+         for f in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        **dg_path_launches("take_rows"))
     print(json.dumps({"kernels": restriction + [
         dict(name="ell_spmv", route="cuda", **KERNELS["ell_spmv"],
              launches=tet_launches["ell_spmv"],
@@ -3980,7 +4666,8 @@ def main():
              d2_launches=d2_launches["fused_diffusion"],
              example_launches=example_launches["fused_diffusion"],
              wave_launches=wave_launches["fused_diffusion"],
-             rest_launches=rest_launches["fused_diffusion"]),
+             rest_launches=rest_launches["fused_diffusion"],
+             **dg_path_launches("fused_diffusion")),
     ] + [dict(name=k, route="cuda", **KERNELS[k], **probe_numbers[k],
               measures=PROBE_MEASURES) for k in PROBE_KERNELS]}))
     print(json.dumps({"ok": True, "device": {

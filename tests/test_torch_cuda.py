@@ -926,3 +926,153 @@ def test_hyperelastic_and_wave_cuda_equal_cpu(cuda, quad_extra_0):
         out.append((u.cpu(), counts))
     assert out[0][1] == out[1][1]
     assert _rel(out[0][0], out[1][0]) <= 1e-10
+
+
+def _dg_vel(x):
+    v = torch.zeros_like(x)
+    v[..., 0], v[..., 1] = 1.0, 0.5
+    if x.shape[-1] == 3:
+        v[..., 2] = 0.25
+    return v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dg_face_route_kernels(cuda, dtype):
+    """The DG applies on the card: every face read a take_rows launch, the
+    sum into the elements one segment_sum launch; two applies bitwise
+    equal; the route's reads and sums bitwise equal to their plain
+    versions."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import L2FESpace
+    from cardiac_ablation_ecm2_tpu_torch.ops import gather_probes as gp
+    from cardiac_ablation_ecm2_tpu_torch.ops.dg_advection import DGAdvection
+    from cardiac_ablation_ecm2_tpu_torch.ops.dg_diffusion import DGDiffusion
+
+    fes = L2FESpace(make_cartesian_3d(4, 3, 3), 3)
+    for op, apply in ((DGAdvection(fes, _dg_vel, dtype=dtype, device=cuda),
+                       lambda o, u: o.mult(0.0, u)),
+                      (DGDiffusion(fes, dtype=dtype, device=cuda), lambda o, u: o.mult(u))):
+        u = torch.randn(fes.ndof, dtype=dtype, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(5))
+        b = (gp.take_rows.launches, bg.segment_sum.launches)
+        y1 = apply(op, u)
+        y2 = apply(op, u)
+        torch.cuda.synchronize()
+        assert (gp.take_rows.launches - b[0], bg.segment_sum.launches - b[1]) == (6, 2)
+        assert torch.equal(y1, y2)
+        F = op.faces
+        ue = u.view(fes.mesh.ne, -1)
+        for g in range(1, 4):
+            assert torch.equal(F.read(ue, g), gp.take_rows_plain(ue, F.idx[g]))
+        parts = [torch.randn(len(F.idx[g]), fes.nd_elem, dtype=dtype, device=cuda)
+                 for g in range(4)]
+        slots, offsets = F.slots((True,) * 4)
+        src = torch.cat([p.reshape(-1) for p in parts])
+        assert torch.equal(F.sum(parts).reshape(-1),
+                           bg.segment_sum_plain(src, slots, offsets))
+
+
+def test_dg_cuda_equals_cpu(cuda):
+    """Advection (RK3-SSP), SIPG and BR2 solves, DG elasticity, Burgers and
+    Euler, IMEX advection–diffusion, the estimators, condensation and ex22
+    on the card equal to the CPU, float64."""
+    from cardiac_ablation_ecm2_tpu_torch.fem import estimators
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import L2FESpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_2d
+    from cardiac_ablation_ecm2_tpu_torch.models.advection_diffusion import (
+        DGAdvectionDiffusion,
+    )
+    from cardiac_ablation_ecm2_tpu_torch.ops.condense import (
+        StaticCondensation,
+        element_matrices,
+    )
+    from cardiac_ablation_ecm2_tpu_torch.ops.dg_advection import DGAdvection, project_l2
+    from cardiac_ablation_ecm2_tpu_torch.ops.dg_diffusion import DGDiffusion, DGDiffusionBR2
+    from cardiac_ablation_ecm2_tpu_torch.ops.dg_elasticity import DGElasticity
+    from cardiac_ablation_ecm2_tpu_torch.ops.hyperbolic import HyperbolicDG
+
+    fes = L2FESpace(make_cartesian_3d(4, 4, 4), 2)
+    fes2 = L2FESpace(make_cartesian_2d(6, 6), 2)
+    out = []
+    for d in (cuda, "cpu"):
+        r = {}
+        op = DGAdvection(fes, _dg_vel, dtype="float64", device=d)
+        u = project_l2(fes, lambda x: torch.exp(-((x - 0.3) ** 2).sum(-1) / 0.01),
+                       "float64", d)
+        for _ in range(5):
+            u, _ = ode.select("rk3_ssp").step(op, u, 0.0, 1e-3)
+        r["adv"] = u
+        for name, Op in (("sipg", DGDiffusion), ("br2", DGDiffusionBR2)):
+            A = Op(fes2, dtype="float64", device=d)
+            b = A.dirichlet_rhs(lambda x: torch.sin(x[..., 0]))
+            dg = A.diagonal()
+            x, info = cg(A.mult, b, M=lambda v: v / dg, rel_tol=1e-10, max_iter=2000)
+            r[name] = (x, info.iterations)
+        E = DGElasticity(fes2, lam=1.5, mu=0.8, dtype="float64", device=d)
+        r["elast"] = E.mult(torch.linspace(-1, 1, E.ndof, dtype=torch.float64, device=d))
+        for law in ("burgers", "euler"):
+            H = HyperbolicDG(fes2, law=law, dtype="float64", device=d)
+            q = torch.ones(fes2.ndof * H.nc, dtype=torch.float64, device=d)
+            q = q + 0.1 * torch.sin(torch.arange(q.numel(), device=d, dtype=q.dtype))
+            r[law] = H.mult(0.0, q)
+        m = DGAdvectionDiffusion(fes2, _dg_vel, epsilon=1e-2, rel_tol=1e-12,
+                                 dtype="float64", device=d)
+        uu = project_l2(fes2, lambda x: torch.exp(-((x - 0.4) ** 2).sum(-1) / 0.02),
+                        "float64", d)
+        r["imex"] = (ode.select("imex_rk2").step(m, uu, 0.0, 0.01)[0],
+                     list(m.cg_iterations))
+        h1 = FESpace(make_cartesian_2d(5, 4), 2)
+        uh = torch.as_tensor(np.sin(3 * h1.dof_coords[:, 0]), device=d)
+        r["est"] = [torch.as_tensor(f(h1, uh)) for f in (
+            estimators.zz_estimator, estimators.kelly_estimator,
+            estimators.lszz_estimator)]
+        hc = FESpace(make_cartesian_3d(2, 2, 2), 3)
+        sc = StaticCondensation(hc, element_matrices(hc, 1.0, 0.5, dtype="float64",
+                                                     device=d))
+        r["cond"] = sc.mult(torch.linspace(0, 1, sc.n_iface, dtype=torch.float64,
+                                           device=d))
+        out.append(r)
+    g, c = out
+    assert _rel(g["adv"], c["adv"]) <= 1e-12
+    for k in ("sipg", "br2"):
+        assert abs(g[k][1] - c[k][1]) <= 3 and _rel(g[k][0], c[k][0]) <= 1e-10
+    for k in ("elast", "burgers", "euler", "cond"):
+        assert _rel(g[k], c[k]) <= 1e-12, k
+    assert _rel(g["imex"][0], c["imex"][0]) <= 1e-10
+    assert all(abs(a - b) <= 3 for a, b in zip(g["imex"][1], c["imex"][1]))
+    for a, b in zip(g["est"], c["est"]):
+        assert _rel(a, b) <= 1e-10
+
+
+def test_sharded_dg_world1_nccl_equals_serial(cuda):
+    """parallel/dg at world size 1 over NCCL: the advection apply and the
+    SIPG solve equal the serial operators' on the card."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import L2FESpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.ops.dg_advection import DGAdvection
+    from cardiac_ablation_ecm2_tpu_torch.ops.dg_diffusion import DGDiffusion
+    from cardiac_ablation_ecm2_tpu_torch.parallel import dg as pdg
+    from cardiac_ablation_ecm2_tpu_torch.parallel import launch
+
+    fes = L2FESpace(make_cartesian_3d(3, 3, 3), 2)
+    u = torch.linspace(-1, 1, fes.ndof, dtype=torch.float64)
+
+    def body(rank, world, dev):
+        a = pdg.setup(fes, _dg_vel, dtype="float64", device=dev)
+        s = pdg.setup_sipg(fes, dtype="float64", device=dev,
+                           f_rhs=lambda x: torch.ones(x.shape[:-1], dtype=x.dtype))
+        x, info = s.solve(rel_tol=1e-10)
+        return a.mult(0.0, a.scatter(u)).cpu(), x.cpu(), info.iterations
+
+    y, x, its = launch.run_single(body)
+    ser = DGAdvection(fes, _dg_vel, dtype="float64", device=cuda)
+    assert torch.equal(y, ser.mult(0.0, u.to(cuda)).cpu())
+    D = DGDiffusion(fes, dtype="float64", device=cuda)
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import basis_for, geom_factors_for
+    from cardiac_ablation_ecm2_tpu_torch.fem.quadinterp import eval_values_t
+
+    gf = geom_factors_for(fes, None, "float64", cuda)
+    b = eval_values_t(basis_for(fes, "float64", cuda), gf.wdet).reshape(-1)
+    dg = D.diagonal()
+    xs, info = cg(D.mult, b, M=lambda v: v / dg, rel_tol=1e-10)
+    assert its == info.iterations and torch.equal(x, xs.cpu())
