@@ -31,6 +31,7 @@ from .ops.dg_advection import project_l2
 from .parallel import bioheat as par_bio
 from .parallel import dg as par_dg
 from .parallel import launch
+from .parallel import pvecfe
 from .utils.config import resolve_device
 
 
@@ -74,7 +75,7 @@ def _dryrun_rank(rank, world, device):
                         solver="sdirk33", rel_tol=1e-8, max_iter=100,
                         device=device)
     T, _ = sim.step(sim.T0, 0.0, 0.5)
-    return sim.gather(T), _dryrun_dg(device)
+    return sim.gather(T), _dryrun_dg(device), _dryrun_vecfe(device)
 
 
 def _dryrun_dg(device):
@@ -94,18 +95,35 @@ def _dryrun_dg(device):
     return par.gather(par.mult(0.0, u0))
 
 
+def _dryrun_vecfe(device):
+    """The JAX dryrun's part (c): a sharded ND curl-curl + mass solve with
+    the in-shard AMS on make_cartesian_3d(4, 4, 4)."""
+    from .fem.fe_vector import NDSpace
+
+    vmesh = make_cartesian_3d(4, 4, 4)
+    pv = pvecfe.setup(
+        NDSpace(vmesh), mass_coeff=1.0, curlcurl_coeff=1.0,
+        rhs_fn=lambda x: np.stack([np.ones_like(x[..., 0]), x[..., 1], x[..., 0]],
+                                  axis=-1),
+        ess_bdr=sorted(set(vmesh.bdr_attributes.tolist())), rel_tol=1e-8,
+        precond="ams", device=device)
+    return pv.solve()[0]
+
+
 def dryrun_multichip(n_devices: int, device=None) -> np.ndarray:
-    """One full sharded bioheat step and one sharded DG advection apply over
-    ``n_devices`` ranks (the JAX package's ``dryrun_multichip`` parts but
-    (a) and (c), whose NC and vector-FE sharded paths wait for
-    ``parallel/pnc`` and ``pvecfe``).  Returns the gathered global
+    """One full sharded bioheat step, one sharded DG advection apply and one
+    sharded ND solve with the in-shard AMS over ``n_devices`` ranks (the
+    JAX package's ``dryrun_multichip`` parts but (a), whose NC sharded path
+    waits for ``parallel/pnc``).  Returns the gathered global
     temperature."""
     if device is None and torch.cuda.device_count() < n_devices:
         raise RuntimeError(f"dryrun_multichip({n_devices}) needs {n_devices} "
                            f"cards; {torch.cuda.device_count()} are visible")
-    out, du = launch.spawn(_dryrun_rank, n_devices, device)[0]
+    out, du, u_nd = launch.spawn(_dryrun_rank, n_devices, device)[0]
     if not np.isfinite(out).all():
         raise RuntimeError("sharded step produced non-finite values")
     if not np.isfinite(du).all():
         raise RuntimeError("sharded DG apply produced non-finite values")
+    if not np.isfinite(u_nd).all():
+        raise RuntimeError("sharded ND solve produced non-finite values")
     return out

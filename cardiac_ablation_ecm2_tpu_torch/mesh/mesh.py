@@ -345,11 +345,21 @@ def unique_faces(mesh: Mesh) -> Tuple[np.ndarray, np.ndarray]:
     loc_list = FACES[mesh.geom]
     if len({len(f) for f in loc_list}) != 1:
         raise NotImplementedError(f"mixed face arities of {mesh.geom!r}")
+    from ..utils.native import encode_rows
+
     keys = np.stack([np.sort(mesh.elements[:, list(f)], axis=1)
                      for f in loc_list], axis=1)
     flat = keys.reshape(-1, keys.shape[-1])
-    uniq, inv = np.unique(flat, axis=0, return_inverse=True)
-    return uniq, inv.reshape(mesh.ne, len(loc_list))
+    # np.unique(flat, axis=0)'s result: hash-unique the rows, then order the
+    # unique rows lexicographically
+    count, ids, _ = encode_rows(flat)
+    first = np.empty(count, dtype=np.int64)
+    first[ids[::-1]] = np.arange(len(ids) - 1, -1, -1)
+    rows = flat[first]
+    order = np.lexsort(rows.T[::-1])
+    rank = np.empty(count, dtype=np.int64)
+    rank[order] = np.arange(count)
+    return rows[order], rank[ids].reshape(mesh.ne, len(loc_list))
 
 
 def _row_ids(table: np.ndarray, rows: np.ndarray) -> np.ndarray:

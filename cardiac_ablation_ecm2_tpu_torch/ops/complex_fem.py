@@ -12,7 +12,10 @@ A = A_r + i A_i acts as one of the two real block forms:
 operators (``PAOperator``, ``LinearOperator`` or any ``.mult`` object), so
 there is no complex arithmetic on the device: two real streams, each
 through the port's kernels.  The H(curl)/H(div) cases (ex22 problem 1,
-ex25) wait for the vector spaces.
+ex25 with a PML) build the two parts with ``ops/vecfe.build_nd_operator``
+/ ``build_rt_operator``, the complex coefficients split into real and
+imaginary (matrix) callables, and wrap them in :class:`ComplexOperator`;
+``complex_jacobi`` takes their diagonals.
 """
 
 from __future__ import annotations

@@ -63,7 +63,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    eight steps on this mesh, while the n=66 row holds (PERF.md).
 7. Tet main path: ``BENCH_MESH=cardiac-tet BENCH_N=66 BENCH_ELL=1`` at full
    size (956,820 tets, 1,278,670 dofs, order 2, float32), MFEM's FULL
-   assembly run (``bench_baseline.json``): host and device setup seconds,
+   assembly run (``bench_baseline.json``; its mesh built in a worker
+   process from the start of the run): host and device setup seconds,
    one warm-up and two timed steps, θ_max within 2e-3 relative of MFEM's
    1.19519539, CG iterations per solve within 15% of 39.78, and the ELL
    kernel must have launched; prints the host packing seconds beside the
@@ -149,8 +150,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    two restrictions (7,962,688 sub-hexes × 8, and the order-1 space's
    995,336 × 8) is held bitwise to its plain version in float32 and
    float64.
-14. ex16 nonlinear heat at full width (``models/heat.py``): the 100³ unit
-   cube, order 2 (8,120,601 dofs), float32, κ = 0.5 + 0.01u, dt 0.01,
+14. ex16 nonlinear heat (``models/heat.py``): the 80³ unit cube (cut from
+   100³, 8,120,601 dofs), order 2 (4,173,281 dofs), float32,
+   κ = 0.5 + 0.01u, dt 0.01,
    SDIRK33, u₀ = exp(−20 r²) about the centre; one warm-up and two steps
    timed with CUDA events.  Prints s/step, the stage CG counts and ‖u‖_L2
    after each step; holds u finite, every stage solve converged (fewer
@@ -202,10 +204,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    exact convergence and then 0/0 on these tiny spaces) on CUDA and on CPU
    tensors, within 1e-10 with equal counts, and on the ELL spaces the PA
    operator against the FULL-assembled one within 1e-12·max|y|.  Then
-   float32 at full width, n = max(2, N // order) elements a side: hex
-   generic and ``--structured`` at N = 128 (about 2.1M dofs at every
-   order), ``--simplex`` PA at N = 96 and ``--ell`` on hexes and tets at
-   N = 64 (both cut; PERF.md section 4).  Prints for every run MDof/s,
+   float32, n = max(2, N // order) elements a side: hex generic and
+   ``--structured`` at N = 80 (about 0.5M dofs at every order; cut from
+   N = 128, 2.1M), ``--simplex`` PA at N = 64 (cut from 96) and
+   ``--ell`` on hexes and tets at N = 64 (all cut; PERF.md section 4).  Prints for every run MDof/s,
    setup seconds, peak memory, the kernels it launched, the lane path it
    took and, for ELL, the SELL padding.  The launch counts are zeroed
    before each (mode, order)'s ``bp.run`` and read right after it; only
@@ -220,9 +222,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
 20. ex2 elasticity (``models/elasticity.solve``): first a 16x2x2 beam on
    CUDA and on CPU tensors (1e-10, equal counts) and, on a 64x8x8 beam,
    the PA apply against the FULL-assembled elasticity matrix applied by
-   ``ell_spmv`` (1e-10); then the 128x16x16 beam of length 8 (x = 0
-   fixed, the load (0, 0, -0.01) on x = 8), order 2, vdim 3, 839,619
-   dofs, float64, Jacobi-PCG at rel_tol 1e-9: iterations, seconds, ms an
+   ``ell_spmv`` (1e-10); then the 96x12x12 beam of length 8 (x = 0
+   fixed, the load (0, 0, -0.01) on x = 8; cut from 128x16x16, 839,619
+   dofs), order 2, vdim 3, 361,875 dofs, float64, Jacobi-PCG at rel_tol 1e-9: iterations, seconds, ms an
    iteration, the tip deflection and peak memory; holds convergence and
    ||B - A_c u|| <= 1e-8 ||B||, and launches of the gather-sum and the
    segment-sum (one of each per component and apply); then the beam's
@@ -286,15 +288,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
    timed beside [2]'s n=126 one.
 26. ex1 in 2D, float64, rel_tol 1e-10: n=16 on the card against the CPU
    (quads, h-MG, triangles, curved quads; 1e-10, equal CG counts); then
-   1024² quads at order 2 (4,198,401 dofs) with Jacobi-PCG and with h-MG
-   over 64² refined four times, 1024² triangles and the quads curved by a
+   D2_N² quads at order 2 (512²: 1,050,625 dofs; cut from 1024²) with
+   Jacobi-PCG and with h-MG over (D2_N/16)² refined four times, D2_N²
+   triangles and the quads curved by a
    smooth map of the square at geometry order 2, with Jacobi-PCG: each
    true residual ≤ 1e-6 (CG stops on √(r, z)), (b, u) of the two quad
    runs within 1e-8 and of
    the triangles and curved quads within 1e-6; each fine restriction
    bitwise after its run.
 27. ``parallel/refine.refine_uniform`` at world size 1 over NCCL: [25]'s
-   130,440-hex order-2 ``ParFESpace`` to 1,043,520 hexes; the rank's
+   16,305-hex order-2 ``ParFESpace`` to 130,440 hexes (cut from 130,440 →
+   1,043,520, whose host tables took 23–49 s); the rank's
    prolongation of a seeded float32 field within 1e-6 max|u| of the
    serial ``HTransfer`` (an average over the written element slots
    against ``inv_mult_f``), then the rank's fine local restriction
@@ -309,7 +313,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 29. The restriction's derivatives (``fem/restriction.py``'s autograd
    Functions) at the n=126 map (995,336 × 27) and the [30] beam's
-   (13,824 × 27), float32 and float64: each direction's forward bitwise
+   (1,728 × 27), float32 and float64: each direction's forward bitwise
    the kernel called directly, its backward bitwise the other direction's
    kernel, its jvp bitwise the kernel on the tangent, one launch each and
    a ``grad_fn`` on every output; the gradient of ||R u||² through the
@@ -321,10 +325,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    gradient's graph built once a Newton step, one backward pass an
    apply).  First a 16x2x2 beam on CUDA and on CPU tensors
    (1e-10, equal Newton counts, CG counts equal but for round-off, within
-   3: ``counts_close``); then 64x8x8 at a tiny traction against ex2's
-   linear elasticity (5e-3, JAX's test) and its tangent apply's ms; then
-   the main run on 96x12x12 (length 8, order 2, vdim 3, 361,875 float64
-   dofs; a cut of [20]'s 128x16x16, whose solve was predicted over ~120 s)
+   3: ``counts_close``); then 32x4x4 (cut from 64x8x8) at a tiny traction
+   against ex2's linear elasticity (5e-3, JAX's test) and its tangent
+   apply's ms; then the main run on 48x6x6 (length 8, order 2, vdim 3,
+   float64; a cut of [20]'s 128x16x16, whose solve was predicted over ~120
+   s, and then of 96x12x12, 75-115 s a phase)
    under a traction of 0.01 along it: setup, Newton and CG counts, solve
    seconds, ms a tangent apply (CUDA events), the residual drop (held ≤
    1e-9), peak memory and launches; then the restriction kernels bitwise
@@ -384,8 +389,39 @@ Phases, in order; any failure raises and the exit code is non-zero:
    and Euler, the IMEX advection–diffusion, the three estimators; then
    the face reads and sums of every card operator bitwise.
 
+38. ex3 with AMS, the vector-FE slice's main path: ``make_cartesian_3d(2,
+   2, 2)`` refined six times (2,097,152 hexes, 6,390,144 ND₁ dofs,
+   2,146,689 H1 dofs), curl curl + mass with n×E = 0, float32 Jacobi-PCG
+   (capped at 4,000) and AMS-PCG (two 7-level h-MG auxiliaries) to 1e-6:
+   counts, seconds, ms an iteration, true residuals, the setup split, the
+   peak, the launches (Jacobi's held to one gather and one segment-sum an
+   apply, AMS's to the sum over the operator, G, Π and every V-cycle
+   level of calls times launches a call); AMS within a quarter of Jacobi's count; the float64 L2 errors
+   of ex3's field (rate 2: each component is constant along its own axis)
+   and of a gradient field (ND₁'s first order) from 64³ to 128³; 8³ in
+   float64 on the card against the CPU; the torch ex3 driver ``--ams -n
+   32`` on the card and the CPU as subprocesses (the CPU one started with
+   the phase, on 4 threads, the card one after the solves); then the ND
+   map, the AMS edge map and every H1 level bitwise against plain.
+39. Magnetic diffusion on the cardiac hex mesh n=126 (3,050,992 ND₀ dofs),
+   three SDIRK33 steps, PEC, Jacobi-PCG, float32; ‖∫_K div B‖ ≤ 1e-6 ‖B·n‖
+   for B = curl A (``discrete_curl``, ``discrete_divergence``); n=8 card
+   against CPU in float64; the ND, RT and curl maps bitwise.
+40. H(div): Darcy (ex5) on 64³ by MINRES; ADS-PCG on div-div + mass to 32³
+   against Jacobi; ``hybridize_hdiv`` on an RT₂ hex and an RT₂ tet case
+   against the unhybridized solve (1e-5 of max|u|, float64); every map
+   bitwise.
+41. The rest of the slice at the JAX tests' sizes, card against CPU in
+   float64 (1e-10, equal counts): the Maxwell eigenvalues, the mixed
+   family, ND/RT_R2D and ND_R1D, the ND/RT operators at orders 1–3, ex22
+   problem 1 and the ex25 PML operators.
+42. ``parallel/pvecfe`` at world size 1 over NCCL on 64³ (811,200 ND₀
+   dofs): Jacobi held to the serial port's solve (1e-5 of max|u|, equal CG
+   counts), the in-shard AMS within 1e-3; the rank's maps bitwise.
+
 Last, ``dryrun_multichip(torch.cuda.device_count())``: one spawned rank a
-card over NCCL, the sharded bioheat step and a sharded DG apply.
+card over NCCL, the sharded bioheat step, a sharded DG apply and a sharded
+ND solve with the in-shard AMS.
 
 The last two lines of standard output are one JSON object describing the
 kernels and one JSON object with the device.  The ``gather_sum``,
@@ -422,15 +458,22 @@ restriction, ``fused_diffusion`` and ``take_rows`` entries carry
 solve), ``pdg_launches`` ([35]) and ``condense_launches`` ([36]'s
 condensed solve); the ``take_rows`` and ``segment_sum`` entries carry
 ``dg_*`` fields, their float32 numbers at [33]'s interior-face read and
-slot list.
+slot list.  The restriction and ``fused_diffusion`` entries carry
+``ex3_ams_launches`` and ``ex3_jacobi_launches`` ([38]'s two solves),
+``magnetic_launches`` ([39]'s steps), ``hdiv_launches`` ([40]'s Darcy and
+ADS solves), ``vecfe_rest_launches`` ([41]'s card runs) and
+``pvecfe_launches`` ([42]); the ``gather_sum`` and ``segment_sum`` entries
+``ex3_*`` fields, their float32 numbers on [38]'s ND map (2,097,152 × 12).
 """
 
 from __future__ import annotations
 
 import json
+import multiprocessing
+import os
 import subprocess
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -913,17 +956,25 @@ def phase_main(dev, mesh, fes, host_s):
     return launches, per_solve, s_step
 
 
-def tet_space(n):
-    """Cardiac tet mesh and its order-2 space, with the host seconds of
-    each."""
-    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+def cardiac_tet_mesh(n):
+    """The cardiac tet mesh n and its host seconds."""
     from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_tet_mesh
 
     t0 = time.perf_counter()
     mesh = make_cardiac_tet_mesh(n, lengths=(L, L, L / 2), electrode_radius=0.004)
+    return mesh, time.perf_counter() - t0
+
+
+def tet_space(n, built=None):
+    """Cardiac tet mesh and its order-2 space, with the host seconds of
+    each; ``built`` is the (mesh, seconds) of :func:`cardiac_tet_mesh`
+    when a worker process made it."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+
+    mesh, mesh_s = cardiac_tet_mesh(n) if built is None else built
     t1 = time.perf_counter()
     fes = FESpace(mesh, 2)
-    return mesh, fes, (t1 - t0, time.perf_counter() - t1)
+    return mesh, fes, (mesh_s, time.perf_counter() - t1)
 
 
 def ell_bound(pair, elsize):
@@ -1792,28 +1843,24 @@ def poisson_residual(fes, dev):
     return lambda u: float((B - Ac.mult(u.double())).norm() / B.norm())
 
 
-def phase_poisson(kc, dev, mesh):
+def phase_poisson(kc, dev, mesh, fes):
     """[13] Poisson on the [4] mesh in float32 with each of the JAX
     package's device preconditioners; after the ``"lor"`` solve's launches
     are read, the kernels of its two restrictions (the LOR sub-hexes', the
     order-1 space's) are held to their plain versions.  Returns the launch
     counts of the three solves together, and for [23] the space, the
-    float64 reference, the true-residual function and the counts."""
+    float64 reference, the true-residual function and the counts.  ``fes``
+    is [4]'s order-2 space of ``mesh`` (its host build is [4]'s)."""
     from cardiac_ablation_ecm2_tpu_torch.fem.build import restriction_for
-    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
     from cardiac_ablation_ecm2_tpu_torch.models import poisson
 
-    t0 = time.perf_counter()
-    fes = FESpace(mesh, 2)
-    space_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     restriction_for(fes, dev)
     torch.cuda.synchronize()
     restr_s = time.perf_counter() - t0
     print(f"[13] Poisson -div(0.54 grad u) = 1, u = 0 on attributes 2, 3, the [4] "
-          f"cardiac hex mesh, order 2 f32: {mesh.ne} hexes, {fes.ndof} dofs; host "
-          f"FESpace {space_s:.2f} s, restriction (shared by the three solves) "
-          f"{restr_s:.2f} s")
+          f"cardiac hex mesh, order 2 f32: {mesh.ne} hexes, {fes.ndof} dofs ([4]'s "
+          f"space); restriction (shared by the three solves) {restr_s:.2f} s")
     total = dict.fromkeys(RESTRICTION_KERNELS + ("fused_diffusion",), 0)
     runs = {}
     for pre in POISSON_PRECONDITIONERS:
@@ -1892,7 +1939,7 @@ def phase_poisson(kc, dev, mesh):
 
 
 def phase_heat(kc, dev, n=100):
-    """[14] ex16 nonlinear heat at full width: the n³ = 100³ unit cube,
+    """[14] ex16 nonlinear heat: the n³ unit cube (80³, cut from 100³),
     order 2, float32, SDIRK33; after its launches are read, the
     restriction's kernels and the fused diffusion apply on the last
     state's κ(u) qdata are held to their plain versions.  Returns the
@@ -2000,8 +2047,10 @@ def phase_entry(dev):
 
 # [19]: the BP harness's modes, each with its full-size elements a side
 # (about 2.1M dofs at every order; tets and ELL cut, PERF.md section 4)
-BP_MODES = (("hex", {}, 128), ("hex structured", dict(structured=True), 128),
-            ("tet", dict(simplex=True), 96), ("hex --ell", dict(ell=True), 64),
+# cut from 128, 128, 96 to 80, 80, 64 (the vector-FE phases [38]-[42]
+# need the time; PERF.md section 4)
+BP_MODES = (("hex", {}, 80), ("hex structured", dict(structured=True), 80),
+            ("tet", dict(simplex=True), 64), ("hex --ell", dict(ell=True), 64),
             ("tet --ell", dict(ell=True, simplex=True), 64))
 BP_KERNELS = ("gather_transpose", "segment_sum", "ell_spmv")
 # [20]: ex2's cantilever (x = 0 fixed, attribute 5; the load on x = 8,
@@ -2010,6 +2059,11 @@ BP_KERNELS = ("gather_transpose", "segment_sum", "ell_spmv")
 # 64x8x8 rehearsal (float64, CPU), above the 1e-8 the phase holds
 ELASTICITY = dict(order=2, fixed_bdr=(5,), force_bdr=(3,), dtype="float64",
                   rel_tol=1e-9, max_iter=20000)
+# the main beam and its dofs, cut from 128x16x16 (839,619 dofs):
+# the vector-FE phases [38]-[42] need the time
+EX2_BEAM, EX2_DOFS = (96, 12, 12), 361_875
+# [14]: the ex16 cube's side, cut from 100 (8,120,601 dofs)
+EX16_N = 80
 # [21]: -0.01 lap u + (1, 0.5, 0.25).grad u = 1, 0.01 du/dn + u = 0
 CONVECTION = dict(eps=0.01, vel=(1.0, 0.5, 0.25), robin=1.0, rel_tol=1e-6,
                   restart=50, max_iter=2000)
@@ -2204,7 +2258,7 @@ def elasticity_residual(res, dev):
 
 
 def phase_elasticity(kc, dev):
-    """[20] ex2 elasticity (``models/elasticity.solve``) on the 128x16x16
+    """[20] ex2 elasticity (``models/elasticity.solve``) on the EX2_BEAM
     beam of length 8, order 2, vdim 3, float64; first a 16x2x2 beam on
     CUDA and on CPU tensors, and the PA apply against the FULL-assembled
     matrix (on the ELL kernel) on a 64x8x8 beam; after the solve, its
@@ -2240,7 +2294,7 @@ def phase_elasticity(kc, dev):
           f"assembly {full_s:.2f} s, {A.nnz} nnz, PA apply vs the matrix on "
           f"ell_spmv {full_err:.3e}")
     del E, A, form, fes, small
-    mesh = make_cartesian_3d(128, 16, 16, sx=8.0)
+    mesh = make_cartesian_3d(*EX2_BEAM, sx=8.0)
     t1 = time.perf_counter()
     FESpace(mesh, ELASTICITY["order"], vdim=3)      # timed alone, thrown away
     fes_s = time.perf_counter() - t1
@@ -2251,11 +2305,11 @@ def phase_elasticity(kc, dev):
     secs = time.perf_counter() - t1
     launches = main_path_launches()
     peak = torch.cuda.max_memory_allocated()
-    check(res.fes.ndof == 839_619, "[20] 839,619 dofs")
+    check(res.fes.ndof == EX2_DOFS, f"[20] {EX2_DOFS:,} dofs")
     check(res.converged and bool(torch.isfinite(res.u).all()), "[20] converged")
     true_res = elasticity_residual(res, dev)
     tip = float(res.displacement()[:, 2].min())
-    print(f"[20] ex2 cantilever 128x16x16 (length 8) order 2 vdim 3 f64: "
+    print(f"[20] ex2 cantilever {'x'.join(map(str, EX2_BEAM))} (length 8) order 2 vdim 3 f64: "
           f"{res.fes.ndof} dofs; Jacobi-PCG rel_tol {ELASTICITY['rel_tol']}: "
           f"{res.iterations} iterations in {secs:.2f} s (space, operator, "
           f"right-hand side and solve; the space alone {fes_s:.2f} s on the "
@@ -2710,8 +2764,10 @@ HMG = dict(rel_tol=1e-5, max_iter=5000)
 #: held run rebuilds them from the same transfers with 60
 HMG_POWER = 60
 #: [26]: ex1's rel_tol in float64; Jacobi-PCG needs ~3,600 steps at 1024²
-#: (111, 224, 450 at 32², 64², 128² on the CPU)
+#: (111, 224, 450 at 32², 64², 128² on the CPU); the side D2_N, cut from
+#: 1024 (the vector-FE phases [38]-[42] need the time)
 D2 = dict(rel_tol=1e-10, max_iter=50_000)
+D2_N = 512
 
 
 def constrained_diffusion(fes, dev, dtype):
@@ -2823,7 +2879,7 @@ def phase_hmg(kc, dev):
     residual, _ = true_residual(fes, dev)
     runs = {"h-MG, 20 power steps": (x20, its20, conv20, setup_s, solve20, peak,
                                      launches)}
-    ht = mg.levels[-1].prolongate.__self__
+    ht = mg.levels[1].prolongate.__self__         # 16,305 → 130,440, for [27]
     start_main_path()
     t0 = time.perf_counter()
     mg60 = rebuilt_levels(mg, ops, HMG_POWER)
@@ -2939,8 +2995,8 @@ def solve_2d(kind, mesh, dev, fes=None, hier=None, hier_spaces=None):
 
 def phase_2d(kc, dev):
     """[26] ex1 on 2D meshes in float64 at rel_tol 1e-10: first n=16 on the
-    card against the CPU (equal CG counts, 1e-10); then 1024² quads with
-    Jacobi-PCG and with h-MG over 64² refined four times, 1024² triangles
+    card against the CPU (equal CG counts, 1e-10); then D2_N² quads with
+    Jacobi-PCG and with h-MG over (D2_N/16)² refined four times, D2_N² triangles
     and the curved quads with Jacobi-PCG: seconds, counts, the true
     residual (held ≤ 1e-6) and ∫u = (b, u) across the runs; after each
     run's launches are read, the restriction of each space it ran on
@@ -2966,7 +3022,7 @@ def phase_2d(kc, dev):
         check(rel <= 1e-10 and outs[0][2] == outs[1][2],
               f"[26] n=16 {kind}: card within 1e-10 of the CPU, equal CG counts")
     t0 = time.perf_counter()
-    full, hier = poisson_2d_cases(1024, coarse=64)
+    full, hier = poisson_2d_cases(D2_N, coarse=D2_N // 16)
     mesh_s = time.perf_counter() - t0
     total = dict.fromkeys(RESTRICTION_KERNELS + ("fused_diffusion",), 0)
     integrals = {}
@@ -2989,7 +3045,7 @@ def phase_2d(kc, dev):
         residual, b = true_residual(fes, dev)
         res = residual(u)
         integrals[kind] = float(b.dot(u))
-        print(f"[26] {kind} 1024^2 order 2 f64: {fes.mesh.ne} elements, {fes.ndof} "
+        print(f"[26] {kind} {D2_N}^2 order 2 f64: {fes.mesh.ne} elements, {fes.ndof} "
               f"dofs; host FESpace{'s' if spaces else ''} {space_s:.2f} s; setup "
               f"{setup_s:.3f} s, solve {solve_s:.3f} s ({solve_s / its * 1e3:.3f} ms "
               f"an iteration), {its} CG iterations, true relative residual "
@@ -3035,9 +3091,10 @@ def phase_2d(kc, dev):
 
 def phase_prefine(kc, dev, spaces, ht):
     """[27] parallel/refine.refine_uniform at world size 1 over NCCL: [25]'s
-    130,440-hex order-2 ParFESpace to 1,043,520 hexes, the prolongation of a
-    seeded float32 field against [25]'s serial HTransfer (1e-6 max|u|);
-    then the rank's coarse and fine local restrictions bitwise.  Returns the
+    16,305-hex order-2 ParFESpace to 130,440 hexes (cut from 130,440 →
+    1,043,520), the prolongation of a seeded float32 field against [25]'s
+    serial HTransfer ``ht`` between those levels (1e-6 max|u|); then the
+    rank's coarse and fine local restrictions bitwise.  Returns the
     prolongation's launches."""
     from cardiac_ablation_ecm2_tpu_torch.parallel import launch, pfespace
     from cardiac_ablation_ecm2_tpu_torch.parallel.refine import refine_uniform
@@ -3045,14 +3102,14 @@ def phase_prefine(kc, dev, spaces, ht):
 
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
-    pf = pfespace.build(spaces[1], 1)
+    pf = pfespace.build(spaces[0], 1)
     pf_f, pt = refine_uniform(pf)
     host_s = time.perf_counter() - t0
-    check(np.array_equal(pf_f.fes.gather_map, spaces[2].gather_map),
+    check(np.array_equal(pf_f.fes.gather_map, spaces[1].gather_map),
           "[27] the sharded refinement numbers the fine dofs as [25]'s")
-    check(np.array_equal(pf_f.loc2glob[0], np.arange(spaces[2].ndof)),
+    check(np.array_equal(pf_f.loc2glob[0], np.arange(spaces[1].ndof)),
           "[27] world 1: local dofs are global dofs")
-    uc = np.random.default_rng(27).standard_normal(spaces[1].ndof)
+    uc = np.random.default_rng(27).standard_normal(spaces[0].ndof)
     start_main_path()
 
     def body(rank, world, d):
@@ -3075,7 +3132,7 @@ def phase_prefine(kc, dev, spaces, ht):
     serial = ht.prolongate(torch.as_tensor(uc, dtype=torch.float32, device=dev))
     scale = float(serial.abs().max())
     err = float((uf[:-1] - serial).abs().max()) / scale
-    print(f"[27] sharded refinement, world 1 over NCCL: {spaces[1].mesh.ne} -> "
+    print(f"[27] sharded refinement, world 1 over NCCL: {spaces[0].mesh.ne} -> "
           f"{pf_f.fes.mesh.ne} hexes, {pf_f.nloc} fine local dofs; host tables "
           f"and refinement {host_s:.2f} s, the rank's transfer {setup_s:.2f} s; "
           f"prolongation {first_s * 1e3:.3f} ms (counts included), "
@@ -3214,10 +3271,12 @@ def phase_examples(kc, dev):
 HYPER = dict(mu=1.0, kappa=10.0, fixed_bdr=(5,), force_bdr=(3,), dtype="float64")
 HYPER_LOAD = (1e-2, 0.0, 0.0)
 HYPER_TINY = (1e-4, 0.0, 0.0)        # the small-strain check against ex2
-# the main run's beam: 96x12x12 at order 2 (361,875 dofs), a cut of [20]'s
-# 128x16x16 (839,619 dofs), whose solve was predicted over ~120 s on one
-# H100 (PERF.md, PR 13)
-HYPER_MAIN = (96, 12, 12)
+HYPER_SMALL = (32, 4, 4)             # its beam (cut from 64x8x8)
+# the main run's beam: 48x6x6 at order 2, a cut of [20]'s 128x16x16
+# (839,619 dofs), whose solve was predicted over ~120 s on one H100
+# (PERF.md), and then of 96x12x12 (361,875 dofs; 75.3-114.9 s a phase):
+# the vector-FE phases [38]-[42] need the time
+HYPER_MAIN = (48, 6, 6)
 # [31]: ex23 on [4]'s mesh; dt against h ~ 3.2e-4 gives c0 K ~ 2.5 M
 WAVE = dict(c2=1.0, max_iter=500)
 WAVE_DT = 1e-3
@@ -3387,9 +3446,9 @@ def phase_hyperelastic(kc, dev, beam_fes):
           f"{ig.iterations} both, CG per step {list(ig.linear_iterations)} on the "
           f"card, {list(ic.linear_iterations)} on the CPU "
           f"({time.perf_counter() - t0:.1f} s)")
-    # 64x8x8: the small-strain check against ex2, and the tangent apply's
-    # time
-    fes64 = beam_space((64, 8, 8))
+    # the small-strain check against ex2 (32x4x4, cut from 64x8x8), and
+    # the tangent apply's time
+    fes64 = beam_space(HYPER_SMALL)
     p64 = hyper_problem(fes64, HYPER_TINY, dev)
     u64, i64 = p64.solve()
     lam = HYPER["kappa"] - 2.0 * HYPER["mu"] / 3
@@ -3399,9 +3458,11 @@ def phase_hyperelastic(kc, dev, beam_fes):
     d_lin = lin.displacement()
     lin_rel = float(np.abs(p64.displacement(u64) - d_lin).max() / np.abs(d_lin).max())
     check(i64.converged and lin_rel < 5e-3,
-          f"[30] 64x8x8 small strain within 5e-3 of ex2's solve ({lin_rel:.2e})")
+          f"[30] {'x'.join(map(str, HYPER_SMALL))} small strain within 5e-3 of ex2's "
+          f"solve ({lin_rel:.2e})")
     jvp64, lin64, build64 = tangent_ms(p64, u64)
-    print(f"[30] 64x8x8 ({fes64.ndof} dofs), traction {HYPER_TINY}: Newton "
+    print(f"[30] {'x'.join(map(str, HYPER_SMALL))} ({fes64.ndof} dofs), traction "
+          f"{HYPER_TINY}: Newton "
           f"{i64.iterations}, CG {list(i64.linear_iterations)}; within {lin_rel:.2e} "
           f"of ex2's linear elasticity (lambda = kappa - 2mu/3, CG {lin.iterations}); "
           f"tangent apply {lin64:.3f} ms (jvp of the residual {jvp64:.3f} ms, the "
@@ -4484,6 +4545,804 @@ def phase_rest_dg(kc, dev):
     return launches
 
 
+# ----------------------------------------------------------------------------
+# vector FE: ex3 with AMS, magnetic diffusion, H(div), the rest, sharded ND
+# ----------------------------------------------------------------------------
+
+#: [38]: the 2³ mesh refined to EX3_N³ (2,097,152 hexes at 128); the L2
+#: error rate is taken between EX3_N/2 and EX3_N; Jacobi's CG cap
+EX3_N = 128
+EX3_SIZES = (2_097_152, 6_390_144, 2_146_689)      # hexes, ND dofs, H1 dofs
+EX3_JACOBI_CAP = 4000
+EX3_REL_TOL = 1e-6
+EX3_SMALL_N = 8
+#: the ex3 driver's run; its CPU side (43.7 s on 8 threads) starts with [38]
+#: on EX3_DRIVER_CPU_THREADS threads and runs beside the card's work
+EX3_DRIVER_N = 32
+EX3_DRIVER_CPU_THREADS = 4
+#: [39] the cardiac hex mesh, its small card-vs-CPU twin, the steps
+MAG_N, MAG_SMALL_N, MAG_STEPS, MAG_DT = 126, 8, 3, 1e-6
+#: [40] Darcy on DARCY_N³, ADS up to ADS_N³, the hybridized cases
+DARCY_N, ADS_N, HYB_HEX_N, HYB_TET_N = 64, 32, 12, 4
+#: [42] the sharded ND solve on PVEC_N³
+PVEC_N = 64
+VECFE_KERNELS = RESTRICTION_KERNELS + ("fused_diffusion",)
+
+
+def vecfe_launches():
+    got = main_path_launches()
+    return {k: got[k] for k in VECFE_KERNELS}
+
+
+def launch_line(launches):
+    return ", ".join(f"{k} {launches[k]}" for k in VECFE_KERNELS)
+
+
+def peak_gib():
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def rel_residual(A, x, b):
+    """‖b − A x‖ / ‖b‖ in float64."""
+    r = (b - A(x)).double()
+    return float(r.norm() / b.double().norm())
+
+
+def ex3_system(nd, dev, dtype, rhs):
+    """The ex3 operator curl curl + mass on ``nd`` with the essential rows
+    masked: (op, A, diag, b)."""
+    from cardiac_ablation_ecm2_tpu_torch.examples.ex3_maxwell import masked_system
+    from cardiac_ablation_ecm2_tpu_torch.ops.vecfe import build_nd_operator, vecfe_linear_form
+
+    op = build_nd_operator(nd, mass_coeff=1.0, curlcurl_coeff=1.0, dtype=dtype, device=dev)
+    A, dg, b = masked_system(op, nd.essential_dofs(None), vecfe_linear_form(op, rhs))
+    return op, A, dg, b
+
+
+class LaunchLedger:
+    """The AMS-PCG solve's launches, accounted for call by call: each
+    callable the solve reaches that launches a kernel (the ND operator, G,
+    Gᵀ, Π, Πᵀ, and every V-cycle level's operator, smoother, prolongation
+    and restriction) is wrapped to count its calls and the kernel launches
+    of each call.  Each callable must launch the same kernels on every
+    call, and the solve's launch counts must equal the sum over the
+    callables of calls times launches a call."""
+
+    def __init__(self):
+        from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
+        from cardiac_ablation_ecm2_tpu_torch.ops import fused_diffusion as fd
+
+        self.fns = [getattr(bg, k) for k in RESTRICTION_KERNELS] + [fd.diffusion_apply]
+        self.calls, self.per_call, self.uneven = {}, {}, set()
+
+    def counts(self):
+        return tuple(f.launches for f in self.fns)
+
+    def wrap(self, name, fn):
+        self.calls.setdefault(name, 0)
+
+        def counted(*args):
+            before = self.counts()
+            out = fn(*args)
+            got = tuple(a - b for a, b in zip(self.counts(), before))
+            if self.per_call.setdefault(name, got) != got:
+                self.uneven.add(name)
+            self.calls[name] += 1
+            return out
+
+        return counted
+
+    def install(self, A, M):
+        """Wrap A, the AMS transfers and both hierarchies' levels in place;
+        returns the counted (A, M)."""
+        class Incidence:            # G with a counted call and transpose
+            def __init__(s, G):
+                s.fwd, s.t = self.wrap("G", G), self.wrap("Gt", G.t)
+
+            def __call__(s, x):
+                return s.fwd(x)
+
+        tr = M.parts["transfer"]
+        tr.G, tr.pi, tr.pi_t = Incidence(tr.G), self.wrap("pi", tr.pi), self.wrap(
+            "pi_t", tr.pi_t)
+        self.mgs = {k: M.parts[k] for k in ("mg_grad", "mg_pi")}
+        for k, mg in self.mgs.items():
+            for i, lvl in enumerate(mg.levels):
+                for f in ("A", "smoother", "prolongate", "restrict_t"):
+                    if getattr(lvl, f) is not None:
+                        setattr(lvl, f, self.wrap(f"{k} {i} {f}", getattr(lvl, f)))
+        self.cycles0 = {k: mg.cycles for k, mg in self.mgs.items()}
+        m_calls = [0]
+
+        def counted_M(r):
+            m_calls[0] += 1
+            return M(r)
+
+        self.m_calls = m_calls
+        return self.wrap("A", A), counted_M
+
+    def check(self, its, dim, launches):
+        """The structure of ``its`` AMS-PCG iterations and the exact sum;
+        returns a line for the log."""
+        n = its + 1                          # applies of A and of M
+        cyc = {k: mg.cycles - self.cycles0[k] for k, mg in self.mgs.items()}
+        c = self.calls
+        check(c["A"] == n and self.m_calls[0] == n,
+              f"[38] AMS-PCG: {n} operator and preconditioner applies")
+        check(c["G"] == c["Gt"] == n and c["pi"] == c["pi_t"] == dim * n,
+              f"[38] AMS: one G, Gᵀ and {dim} Π, Πᵀ an application")
+        check(cyc == dict(mg_grad=n, mg_pi=dim * n),
+              f"[38] AMS: one gradient and {dim} Π V-cycles an application ({cyc})")
+        for k, mg in self.mgs.items():
+            for i in range(1, len(mg.levels)):
+                got = [c[f"{k} {i} {f}"] for f in ("A", "smoother", "prolongate",
+                                                   "restrict_t")]
+                check(got == [2 * cyc[k], 2 * cyc[k], cyc[k], cyc[k]],
+                      f"[38] {k} level {i}: two operator applies and smoother "
+                      f"sweeps, one prolongation and restriction a V-cycle ({got})")
+        check(not self.uneven, f"[38] every counted callable launches the same "
+              f"kernels on every call ({sorted(self.uneven)})")
+        total = [sum(c[k] * self.per_call.get(k, (0,) * 4)[j] for k in c)
+                 for j in range(4)]
+        names = RESTRICTION_KERNELS + ("fused_diffusion",)
+        want = [launches[k] for k in names]
+        check(total == want, f"[38] AMS-PCG launches {want} equal the sum over its "
+              f"callables of calls × launches a call {total}")
+        coarse = {k: c[f"{k} 0 A"] for k in self.mgs}
+        return (f"[38] AMS launch ledger: {n} applies of A and of the AMS, "
+                f"{dim * n} Π/Πᵀ pairs, V-cycles {cyc}, coarse CG operator "
+                f"applies {coarse}; " + ", ".join(
+                    f"{k} {t}" for k, t in zip(names, total))
+                + " = the counts read after the solve")
+
+
+def ex3_ams(meshes, dev, dtype, rel_tol, jacobi_cap, ledger=None):
+    """ex3's --ams problem on meshes[-1]: Jacobi-PCG and AMS-PCG.  Returns
+    the x's, counts, seconds, setup split, launches and the objects; with
+    a ``LaunchLedger`` the AMS solve's launches are accounted for."""
+    from cardiac_ablation_ecm2_tpu_torch.examples.ex3_maxwell import ams_rhs
+    from cardiac_ablation_ecm2_tpu_torch.fem.fe_vector import NDSpace
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg.ams import make_ams
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.utils.config import elapsed
+
+    out = {}
+    t0 = time.perf_counter()
+    mesh = meshes[-1]
+    nd, h1 = NDSpace(mesh), FESpace(mesh, 1)
+    out["host_s"] = time.perf_counter() - t0
+    from cardiac_ablation_ecm2_tpu_torch.examples.ex3_maxwell import masked_system
+    from cardiac_ablation_ecm2_tpu_torch.ops.vecfe import build_nd_operator, vecfe_linear_form
+
+    t0 = time.perf_counter()
+    op = build_nd_operator(nd, mass_coeff=1.0, curlcurl_coeff=1.0, dtype=dtype, device=dev)
+    out["op_s"] = elapsed(t0, dev)
+    t0 = time.perf_counter()
+    A, dg, b = masked_system(op, nd.essential_dofs(None), vecfe_linear_form(op, ams_rhs))
+    out["rhs_s"] = elapsed(t0, dev)
+    t0 = time.perf_counter()
+    bdr = sorted(set(mesh.bdr_attributes.tolist()))
+    M = make_ams(nd, h1, A, dg, ess_bdr=bdr, meshes=meshes, dtype=dtype, device=dev)
+    out["ams_s"] = elapsed(t0, dev)
+    out["setup_peak"] = peak_gib() if torch.device(dev).type == "cuda" else 0.0
+    for name, prec, cap in (("jacobi", lambda r: r / dg, jacobi_cap), ("ams", M, 500)):
+        op_fn = A
+        if name == "ams" and ledger is not None:
+            op_fn, prec = ledger.install(A, M)
+        start_main_path()
+        t0 = time.perf_counter()
+        x, info = cg(op_fn, b, M=prec, rel_tol=rel_tol, max_iter=cap)
+        out[name] = dict(x=x, its=info.iterations, converged=info.converged,
+                         s=elapsed(t0, dev), launches=vecfe_launches(),
+                         res=rel_residual(A, x, b))
+    out.update(nd=nd, h1=h1, op=op, A=A, b=b, M=M)
+    return out
+
+
+def ex3_small(d):
+    """[38] at EX3_SMALL_N³, float64: AMS's x and count, Jacobi's count.
+    Jacobi-PCG to 1e-10 takes ~117 steps here, in CG's round-off regime:
+    the card stopped at 116 where the CPU stopped at 118 (a card test), so
+    its count is held within ``counts_close`` and its x not at
+    1e-10."""
+    from cardiac_ablation_ecm2_tpu_torch.examples.ex3_maxwell import hierarchy
+
+    r = ex3_ams(hierarchy(EX3_SMALL_N), d, torch.float64, 1e-10, 8000)
+    return [r["ams"]["x"]], [Krylov([r["jacobi"]["its"]]), r["ams"]["its"]]
+
+
+def gradient_field(x):
+    """E = ∇(sin πx sin πy sin πz)/π of host points: tangential trace 0,
+    curl E = 0, so curl curl E + E = E; each component varies along its own
+    axis.  ``torch`` points give a tensor."""
+    m = torch if torch.is_tensor(x) else np
+    s, c = m.sin(np.pi * x), m.cos(np.pi * x)
+    return m.stack([c[..., 0] * s[..., 1] * s[..., 2], s[..., 0] * c[..., 1] * s[..., 2],
+                    s[..., 0] * s[..., 1] * c[..., 2]], -1)
+
+
+def sine_field(x):
+    """ex3's E_i = sin πx_j sin πx_k, of host points or a tensor."""
+    m = torch if torch.is_tensor(x) else np
+    s = m.sin(np.pi * x)
+    return m.stack([s[..., 1] * s[..., 2], s[..., 2] * s[..., 0], s[..., 0] * s[..., 1]], -1)
+
+
+def ex3_l2_errors(nd, dev):
+    """L2 errors on ``nd`` in float64 (a float32 solve's own error, ~1e-5
+    at 128³, would hide the discretization's) of two exact fields: ex3's
+    sine product (f = (2π² + 1)E, a discrete eigenmode of the uniform
+    lattice, one Jacobi-PCG iteration) and :func:`gradient_field` (f = E).
+    The fields and the error are evaluated on the card; the right-hand
+    sides at host points (the linear forms' convention).  Returns
+    [(error, CG count)] in that order."""
+    from cardiac_ablation_ecm2_tpu_torch.examples.ex3_maxwell import masked_system
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.ops.vecfe import build_nd_operator, vecfe_linear_form
+
+    op = build_nd_operator(nd, 1.0, 1.0, dtype=torch.float64, device=dev)
+    out = []
+    for field, scale in ((sine_field, 2 * np.pi ** 2 + 1), (gradient_field, 1.0)):
+        A, dg, b = masked_system(op, nd.essential_dofs(None), vecfe_linear_form(
+            op, lambda x: scale * field(x)))
+        x, info = cg(A, b, M=lambda r: r / dg, rel_tol=1e-10, max_iter=EX3_JACOBI_CAP)
+        d2 = ((op.values(x) - field(op.gf.x)) ** 2).sum(dim=-1)
+        out.append((float((op.gf.wdet * d2).sum().sqrt()), info.iterations))
+        del A, dg, b, x, d2
+    return out
+
+
+EX3_RUN = ["-m", "cardiac_ablation_ecm2_tpu_torch.examples.ex3_maxwell", "--ams",
+           "-n", str(EX3_DRIVER_N)]
+
+
+def start_ex3_driver(*extra, threads=None):
+    """The ex3 driver in a subprocess (``threads``: its CPU threads)."""
+    import sys
+
+    env = dict(os.environ)
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
+    return subprocess.Popen([sys.executable] + EX3_RUN + list(extra), text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env)
+
+
+def ex3_driver_lines(proc, what):
+    """The lines of a driver run that :func:`start_ex3_driver` started."""
+    try:
+        out, err = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    check(proc.returncode == 0, f"[38] ex3 driver {what} ran ({err[-400:]})")
+    return out.strip().splitlines()
+
+
+def phase_ex3(kc, dev):
+    """[38] ex3 with AMS on the 2³ → 128³ hierarchy; returns the launches of
+    the AMS and Jacobi solves and the kernels line's ND-map numbers.  The
+    ex3 driver's runs go on beside the phase's own work (the CPU one from the
+    start, the card one after the solves) and are stopped if it fails."""
+    drivers = [start_ex3_driver("--cpu", threads=EX3_DRIVER_CPU_THREADS)]
+    try:
+        return ex3_checks(kc, dev, drivers)
+    finally:
+        for p in drivers:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def ex3_checks(kc, dev, drivers):
+    """[38]'s body; ``drivers`` holds the ex3 driver's CPU run and gets its card
+    run."""
+    from cardiac_ablation_ecm2_tpu_torch.examples.ex3_maxwell import hierarchy
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import restriction_for
+    from cardiac_ablation_ecm2_tpu_torch.fem.fe_vector import NDSpace
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    meshes = hierarchy(EX3_N)
+    mesh_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ledger = LaunchLedger()
+    r = ex3_ams(meshes, dev, torch.float32, EX3_REL_TOL, EX3_JACOBI_CAP, ledger)
+    t_card = time.perf_counter()
+    drivers.append(start_ex3_driver())
+    nd, h1, op = r["nd"], r["h1"], r["op"]
+    check((meshes[-1].ne, nd.ndof, h1.ndof) == EX3_SIZES,
+          f"[38] {EX3_N}^3: {EX3_SIZES[0]:,} hexes, {EX3_SIZES[1]:,} ND dofs, "
+          f"{EX3_SIZES[2]:,} H1 dofs")
+    jac, ams = r["jacobi"], r["ams"]
+    for name, s in (("Jacobi", jac), ("AMS", ams)):
+        print(f"[38] {name}-PCG to {EX3_REL_TOL:g}: {s['its']} CG, {s['s']:.2f} s, "
+              f"{1e3 * s['s'] / max(s['its'], 1):.2f} ms/iteration, true residual "
+              f"{s['res']:.3e}, converged {s['converged']}; launches "
+              + launch_line(s["launches"]))
+    capped = not jac["converged"]
+    print(f"[38] Jacobi {'hit' if capped else 'stayed under'} its cap of "
+          f"{EX3_JACOBI_CAP} CG iterations")
+    dx = float((ams["x"] - jac["x"]).abs().max() / jac["x"].abs().max())
+    print(f"[38] AMS against Jacobi: {dx:.3e} of max|x|")
+    # float32 bounds: an iterate's true residual carries eps32 times the
+    # curl-curl operator's condition (~1e6 at 128³), and Jacobi's ~1,000
+    # steps drift further; each solve's own tolerance is 1e-6
+    check(ams["converged"] and ams["res"] <= 1e-3,
+          f"[38] AMS-PCG converged, true residual {ams['res']:.2e} (≤ 1e-3)")
+    check(dx <= 1e-2, "[38] the AMS and Jacobi solutions agree within 1e-2 of max|x|")
+    check(4 * ams["its"] <= jac["its"], f"[38] AMS takes at most a quarter of "
+          f"Jacobi's iterations ({ams['its']} against {jac['its']})")
+    lj, la = jac["launches"], ams["launches"]
+    check(lj["gather_sum"] == jac["its"] + 1 and lj["segment_sum"] == jac["its"] + 1,
+          f"[38] Jacobi launches: one gather_sum and one segment_sum per apply "
+          f"({jac['its'] + 1} applies)")
+    print(ledger.check(ams["its"], meshes[-1].dim, la))
+    mg = r["M"].parts["mg_grad"]
+    print(f"[38] setup: mesh hierarchy {mesh_s:.1f} s, host spaces and tables "
+          f"{r['host_s']:.1f} s, device operator {r['op_s']:.1f} s, right-hand side "
+          f"and diagonal {r['rhs_s']:.1f} s (host numpy at the points), AMS (two "
+          f"{len(mg.levels)}-level h-MG hierarchies) {r['ams_s']:.1f} s; peak "
+          f"{r['setup_peak']:.2f} GiB after setup, {peak_gib():.2f} GiB after the "
+          f"solves (the two (ne, 27, 3, 12) terms: "
+          f"{2 * meshes[-1].ne * 27 * 36 * 4 / 1e9:.2f} GB)")
+    # the maps the phase launched on: the ND map, the AMS edge map and the
+    # H1 levels of both hierarchies (they share their spaces)
+    maps = [(op.restr, "ex3 ND map ", True),
+            (r["M"].parts["transfer"].restr, "ex3 AMS edge map ", False)]
+    maps += [(restriction_for(f, dev), f"ex3 H1 level {i} ", False) for i, f in enumerate(
+        sorted(r["M"].parts["spaces"].values(), key=lambda f: f.mesh.ne))]
+    del r, op
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fine = ex3_l2_errors(nd, dev)
+    torch.cuda.empty_cache()
+    coarse = ex3_l2_errors(NDSpace(meshes[-2]), dev)
+    rates = [float(np.log2(c[0] / f[0])) for c, f in zip(coarse, fine)]
+    for name, c, f, rate in zip(("ex3's sine product", "the gradient field"), coarse,
+                                fine, rates):
+        print(f"[38] L2 error of {name}: {c[0]:.4e} at {EX3_N // 2}^3 ({c[1]} CG), "
+              f"{f[0]:.4e} at {EX3_N}^3 ({f[1]} CG), rate {rate:.3f}")
+    # ex3's E_i = sin πx_j sin πx_k is constant along x_i, where ND₁ on hexes
+    # holds the bilinear interpolant of E_i: its error is second order; the
+    # gradient field's components vary along their own axes: first order
+    check(1.9 <= rates[0] <= 2.1, "[38] ex3's field converges at rate 2 (in [1.9, 2.1])")
+    check(0.9 <= rates[1] <= 1.1, "[38] the gradient field converges at ND₁'s first "
+          "order (rate in [0.9, 1.1])")
+    print(f"[38] L2 errors {time.perf_counter() - t0:.1f} s")
+    both(f"ex3 --ams {EX3_SMALL_N}^3 float64", ex3_small, dev, tag="[38]")
+    t0 = time.perf_counter()
+    card = ex3_driver_lines(drivers[1], "on the card")
+    card_s = time.perf_counter() - t_card
+    cpu = ex3_driver_lines(drivers[0], "--cpu")
+    counts = [[int(w) for w in ln.split() if w.isdigit()] for ln in (card[1], cpu[1])]
+    check(card[0] == cpu[0] and counts_close(*counts),
+          f"[38] ex3 driver --ams -n {EX3_DRIVER_N}: {card} on the card, {cpu} on the CPU")
+    print(f"[38] ex3 driver on the card: {' | '.join(card)} ({card_s:.1f} s since it "
+          f"started after the solves); on the CPU ({EX3_DRIVER_CPU_THREADS} threads, "
+          f"started with the phase): {' | '.join(cpu)}; waited "
+          f"{time.perf_counter() - t0:.1f} s for both")
+    for i, (rr, what, timed) in enumerate(maps):
+        check_restriction(kc, rr, what, "[38]", seed=380 + i, timed=timed)
+    del maps
+    numbers = {k: {f: kc.times[f"ex3 ND map {lab} float32"][f]
+                   for f in ("ms", "plain_ms", "bound_ms", "library_ms")}
+               for k, lab in (("gather_sum", "L->E (ne,nd)"),
+                              ("segment_sum", "E->L (ne,nd)"))}
+    print(f"[38] phase {time.perf_counter() - t_phase:.1f} s")
+    return la, lj, numbers
+
+
+def mag_source(x):
+    """J_s of host points: a Gaussian current along z about the electrode's
+    axis (x, y) = (L/2, L/2)."""
+    r2 = (x[..., 0] - L / 2) ** 2 + (x[..., 1] - L / 2) ** 2
+    z = np.zeros_like(r2)
+    return np.stack([z, z, 1e3 * np.exp(-r2 / (L / 8) ** 2)], axis=-1)
+
+
+def mag_run(mesh, d, dtype, rel_tol, steps=MAG_STEPS):
+    """MAG_STEPS SDIRK33 steps of magnetic diffusion from A = 0, PEC on every
+    boundary attribute: (nd, operator, A, host seconds, setup seconds, step
+    seconds)."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.fe_vector import NDSpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg import ode
+    from cardiac_ablation_ecm2_tpu_torch.models.magnetic_diffusion import (
+        MagneticDiffusionOperator,
+    )
+    from cardiac_ablation_ecm2_tpu_torch.utils.config import elapsed
+
+    t0 = time.perf_counter()
+    nd = NDSpace(mesh)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = MagneticDiffusionOperator(nd, sigma=1.0, nu=1.0, source=mag_source,
+                                   ess_bdr=sorted(set(mesh.bdr_attributes.tolist())),
+                                   rel_tol=rel_tol, max_iter=4000, dtype=dtype, device=d)
+    setup_s = elapsed(t0, d)
+    A = torch.zeros(nd.ndof, dtype=dtype, device=d)
+    solver, t = ode.select("sdirk33"), 0.0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        A, t = solver.step(op, A, t, MAG_DT)
+    return nd, op, A, host_s, setup_s, elapsed(t0, d)
+
+
+def mag_small(d):
+    from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
+
+    mesh = make_cardiac_hex_mesh(MAG_SMALL_N, lengths=(L, L, L / 2), electrode_radius=0.004)
+    _, op, A, *_ = mag_run(mesh, d, torch.float64, 1e-12)
+    return [A], Krylov(op.cg_iterations)
+
+
+def phase_magnetic(kc, dev, mesh):
+    """[39] magnetic diffusion on the cardiac hex mesh n=126 (float32, PEC,
+    Jacobi-PCG), the discrete div-curl invariant, n=8 card against CPU;
+    returns the main run's launches."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.fe_vector import RTSpace
+    from cardiac_ablation_ecm2_tpu_torch.ops.vecfe import discrete_curl, discrete_divergence
+
+    t_phase = time.perf_counter()
+    start_main_path()
+    nd, op, A, host_s, setup_s, step_s = mag_run(mesh, dev, torch.float32, 1e-5)
+    launches = vecfe_launches()
+    its = op.cg_iterations
+    check(len(its) == 3 * MAG_STEPS and all(0 < i < 4000 for i in its),
+          f"[39] every stage solve converged under the cap ({its})")
+    check(bool(torch.isfinite(A).all()) and float(A.abs().max()) > 0,
+          "[39] A is finite and nonzero")
+    check(launches["gather_sum"] >= sum(its) and launches["segment_sum"] >= sum(its),
+          "[39] the steps launched gather_sum and segment_sum")
+    print(f"[39] magnetic diffusion on the cardiac hex mesh n={MAG_N}: {mesh.ne:,} hexes, "
+          f"{nd.ndof:,} ND0 dofs; {MAG_STEPS} SDIRK33 steps of {MAG_DT:g}: "
+          f"{step_s / MAG_STEPS:.3f} s/step, CG per stage {its} (mean "
+          f"{np.mean(its):.1f}); setup: host space {host_s:.1f} s, operators "
+          f"{setup_s:.1f} s; peak {peak_gib():.2f} GiB; launches " + launch_line(launches))
+    t0 = time.perf_counter()
+    rt = RTSpace(mesh)
+    C = discrete_curl(nd, rt, device=dev, dtype=torch.float32)
+    D = discrete_divergence(rt, device=dev, dtype=torch.float32)
+    B = C(A)
+    flux = D.op(B)                # ∫_K div B = D(B)·|K|, the net flux out of K
+    ratio = float(flux.double().norm() / B.double().norm())
+    ratio_max = float(flux.abs().max() / B.abs().max())
+    print(f"[39] div-curl: {rt.ndof:,} RT0 faces, ‖∫_K div B‖ {ratio:.3e} of ‖B·n‖ "
+          f"(max {ratio_max:.3e} of max), {time.perf_counter() - t0:.1f} s")
+    check(ratio <= 1e-6, f"[39] B = curl A is divergence-free: ‖∫_K div B‖ = "
+          f"{ratio:.2e} ‖B·n‖ (≤ 1e-6; float32 sums of ±face fluxes)")
+    maps = [(op.M.restr, "n=126 ND map "), (D.op.restr, "n=126 RT map "),
+            (C.restr, "n=126 curl map ")]
+    del op, A, B, flux
+    torch.cuda.empty_cache()
+    both(f"magnetic diffusion cardiac n={MAG_SMALL_N} float64", mag_small, dev, tag="[39]")
+    for i, (rr, what) in enumerate(maps):
+        check_restriction(kc, rr, what, "[39]", seed=390 + i)
+    print(f"[39] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def darcy_f(x):
+    return np.stack([x[..., 1], 1 - x[..., 0], x[..., 0] * x[..., 2]], -1)
+
+
+def darcy_g(x):
+    return 3 * np.pi ** 2 * np.prod(np.sin(np.pi * x), axis=-1)
+
+
+def hyb_f(x):
+    return np.stack([np.sin(x[..., 0]) + x[..., 1], np.cos(x[..., 1]) - 0.5 * x[..., 0],
+                     x[..., 2] ** 2], axis=-1)
+
+
+def hybridized_against_plain(space, dev, tag, label):
+    """``hybridize_hdiv`` against the unhybridized Jacobi-PCG solve of
+    mass + 0.8 div-div (float64): the restrictions it launched on."""
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.ops.hybridization import hybridize_hdiv
+    from cardiac_ablation_ecm2_tpu_torch.ops.vecfe import build_rt_operator, vecfe_linear_form
+
+    t0 = time.perf_counter()
+    op = build_rt_operator(space, 1.0, 0.8, nq1d=4, dtype=torch.float64, device=dev)
+    b = vecfe_linear_form(op, hyb_f)
+    dg = op.diagonal()
+    u, info = cg(op.mult, b, M=lambda r: r / dg, rel_tol=1e-10, max_iter=20_000)
+    hy = hybridize_hdiv(space, op)
+    uh, _, hinfo = hy.solve(hyb_f, rel_tol=1e-10, max_iter=20_000)
+    err = float((uh - u).abs().max() / u.abs().max())
+    check(info.converged and hinfo.converged and err <= 1e-5,
+          f"{tag} hybridized {label} within 1e-5 of the plain solve ({err:.2e})")
+    print(f"{tag} hybridization {label}: {space.ndof:,} dofs, {hy.nlam:,} multipliers, "
+          f"interface CG {hinfo.iterations} against {info.iterations} plain, "
+          f"{err:.2e} of max|u|, {time.perf_counter() - t0:.2f} s")
+    return [(op.restr, f"hybridization {label} map "),
+            (hy.lam, f"hybridization {label} multiplier map ")]
+
+
+def phase_hdiv(kc, dev):
+    """[40] Darcy on DARCY_N³, ADS-PCG up to ADS_N³ against Jacobi, the two
+    hybridized cases; returns the Darcy and ADS solves' launches."""
+    from cardiac_ablation_ecm2_tpu_torch.examples.ex3_maxwell import hierarchy, masked_system
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import restriction_for
+    from cardiac_ablation_ecm2_tpu_torch.fem.fe_vector import NDSpace, RTSpace
+    from cardiac_ablation_ecm2_tpu_torch.fem.fe_vector_ho import RTSpaceHO
+    from cardiac_ablation_ecm2_tpu_torch.fem.fe_vector_simplex import RTSimplexSpace
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg.ams import make_ads
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_3d, make_cartesian_3d_tet
+    from cardiac_ablation_ecm2_tpu_torch.models import darcy
+    from cardiac_ablation_ecm2_tpu_torch.ops.vecfe import build_rt_operator, vecfe_linear_form
+    from cardiac_ablation_ecm2_tpu_torch.utils.config import elapsed
+
+    t_phase = time.perf_counter()
+    start_main_path()
+    t0 = time.perf_counter()
+    mesh = make_cartesian_3d(DARCY_N, DARCY_N, DARCY_N)
+    res = darcy.solve(mesh, f_vec=darcy_f, g_fn=darcy_g, rel_tol=1e-6, max_iter=20_000,
+                      dtype=torch.float32, device=dev)
+    secs = elapsed(t0, dev)
+    launches = vecfe_launches()
+    sysd = darcy.system(res.rt, res.l2, darcy_f, darcy_g, torch.float32, dev)
+    x = torch.cat([res.u, -res.p])
+    rel = rel_residual(sysd.op.mult, x, sysd.rhs)
+    print(f"[40] Darcy {DARCY_N}^3: {res.rt.ndof:,} RT0 + {res.l2.ndof:,} L2 dofs, MINRES "
+          f"{res.iterations} iterations, {secs:.2f} s (spaces included), true residual "
+          f"{rel:.3e}; launches " + launch_line(launches))
+    check(res.converged and rel <= 1e-4, f"[40] Darcy MINRES converged (true residual "
+          f"{rel:.2e})")
+    maps = [(sysd.M.restr, "Darcy RT map "), (restriction_for(res.l2, dev), "Darcy L2 map ")]
+    del res, sysd, x
+    t0 = time.perf_counter()
+    meshes = hierarchy(ADS_N)
+    m = meshes[-1]
+    rt, ndsp, h1 = RTSpace(m), NDSpace(m), FESpace(m, 1)
+    op = build_rt_operator(rt, 1.0, 1.0, dtype=torch.float32, device=dev)
+    A, dg, b = masked_system(op, rt.essential_dofs(None), vecfe_linear_form(op, hyb_f))
+    M = make_ads(rt, ndsp, h1, A, dg, ess_bdr=sorted(set(m.bdr_attributes.tolist())),
+                 meshes=meshes, dtype=torch.float32, device=dev)
+    setup_s = elapsed(t0, dev)
+    out = {}
+    for name, prec in (("Jacobi", lambda r: r / dg), ("ADS", M)):
+        start_main_path()
+        t0 = time.perf_counter()
+        x, info = cg(A, b, M=prec, rel_tol=1e-6, max_iter=4000)
+        out[name] = (info.iterations, elapsed(t0, dev), rel_residual(A, x, b),
+                     vecfe_launches())
+    (ij, sj, rj, _), (ia, sa, ra, la) = out["Jacobi"], out["ADS"]
+    print(f"[40] div-div + mass on {ADS_N}^3 ({rt.ndof:,} RT0 dofs, {len(meshes)} levels): "
+          f"Jacobi {ij} CG {sj:.2f} s (residual {rj:.2e}), ADS {ia} CG {sa:.2f} s "
+          f"(residual {ra:.2e}); ADS setup {setup_s:.2f} s; launches " + launch_line(la))
+    # float32 true residuals: eps32 times the div-div operator's condition
+    check(ia < ij and ra <= 1e-3, f"[40] ADS-PCG takes fewer iterations than Jacobi "
+          f"({ia} against {ij}), true residual {ra:.2e} ≤ 1e-3")
+    maps += [(op.restr, "ADS RT map "), (M.parts["transfer"].restr, "ADS face map "),
+             (M.parts["curl"].restr, "ADS curl map "),
+             (M.parts["ams"].parts["transfer"].restr, "ADS edge map ")]
+    maps += [(restriction_for(f, dev), f"ADS H1 level {i} ") for i, f in enumerate(
+        sorted(M.parts["spaces"].values(), key=lambda f: f.mesh.ne))]
+    del op, A, M
+    maps += hybridized_against_plain(RTSpaceHO(make_cartesian_3d(*(HYB_HEX_N,) * 3), 2),
+                                     dev, "[40]", f"RT_2 hex {HYB_HEX_N}^3")
+    maps += hybridized_against_plain(RTSimplexSpace(make_cartesian_3d_tet(*(HYB_TET_N,) * 3), 2),
+                                     dev, "[40]", f"RT_2 tet {HYB_TET_N}^3")
+    for i, (rr, what) in enumerate(maps):
+        check_restriction(kc, rr, what, "[40]", seed=400 + i)
+    print(f"[40] phase {time.perf_counter() - t_phase:.1f} s")
+    return {k: launches[k] + la[k] for k in VECFE_KERNELS}
+
+
+def _gen_like(n, seed, d, cols=None):
+    gen = torch.Generator().manual_seed(seed)
+    shape = (n,) if cols is None else (n, cols)
+    return torch.randn(shape, generator=gen, dtype=torch.float64).to(d)
+
+
+def rest_vecfe(d):
+    """[41]'s cases on device ``d`` (float64), each a function returning
+    (tensors, counts)."""
+    from cardiac_ablation_ecm2_tpu_torch.fem import fe_vector_ho as ho
+    from cardiac_ablation_ecm2_tpu_torch.fem import fe_vector_simplex as sx
+    from cardiac_ablation_ecm2_tpu_torch.fem.fe_vector import NDSpace, RTSpace
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace, L2FESpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg.maxwell_eigen import maxwell_eigenvalues
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import gmres
+    from cardiac_ablation_ecm2_tpu_torch.mesh import mesh as mk
+    from cardiac_ablation_ecm2_tpu_torch.ops import complex_fem as cf
+    from cardiac_ablation_ecm2_tpu_torch.ops import mixed_vecfe as mx
+    from cardiac_ablation_ecm2_tpu_torch.ops import vecfe as vf
+    from cardiac_ablation_ecm2_tpu_torch.ops import vecfe_r as vr
+
+    kw = dict(dtype=torch.float64, device=d)
+
+    def applies(ops, seed):
+        out = []
+        for i, op in enumerate(ops):
+            x = _gen_like(getattr(op, "ndof_trial", getattr(op, "ndof", 0)), seed + i, d)
+            out.append(op.mult(x))
+            if hasattr(op, "mult_t"):
+                out.append(op.mult_t(_gen_like(op.ndof_test, seed + 50 + i, d)))
+            elif hasattr(op, "diagonal"):
+                out.append(op.diagonal())
+        return out
+
+    def eig():
+        sp = ho.NDSpaceHO(mk.make_cartesian_2d(4, 4), 2)
+        r = maxwell_eigenvalues(sp, FESpace(sp.mesh, 2), k=3, iters=40,
+                                X0=_gen_like(sp.ndof, 41, "cpu", 3), **kw)
+        return [torch.as_tensor(r.eigenvalues)], 0
+
+    def mixed():
+        m = mk.make_cartesian_3d(3, 3, 3)
+        nd, rt = ho.NDSpaceHO(m, 2), ho.RTSpaceHO(m, 2)
+        h1, l2, v = FESpace(m, 2), L2FESpace(m, 1), FESpace(m, 2, vdim=3)
+        V = np.array([0.3, -0.5, 0.8])
+        ops = [mx.mixed_vector_gradient(h1, nd, nq1d=4, **kw),
+               mx.mixed_vector_weak_divergence(nd, h1, nq1d=4, **kw),
+               mx.mixed_vector_mass(nd, rt, nq1d=4, **kw),
+               mx.mixed_vector_curl(nd, rt, nq1d=4, **kw),
+               mx.mixed_weak_curl(rt, nd, nq1d=4, **kw),
+               mx.vectorfe_divergence(rt, l2, nq1d=4, **kw),
+               mx.vector_divergence(v, FESpace(m, 1), **kw),
+               mx.mixed_cross_product(v, v, V, **kw),
+               mx.mixed_cross_curl(NDSpace(m), v, V, **kw)]
+        return applies(ops, 410), 0
+
+    def restricted():
+        ops = []
+        for m in (mk.make_cartesian_2d(4, 4), mk.make_cartesian_2d_tri(3, 3)):
+            ops += [vr.build_nd_r2d_operator(vr.NDR2DSpace(m, 2), np.eye(3) + 0.1, 1.3, **kw),
+                    vr.build_rt_r2d_operator(vr.RTR2DSpace(m, 2), 0.9, 1.7, **kw)]
+        ops.append(vr.build_nd_r1d_operator(vr.NDR1DSpace(np.linspace(0, 1, 9), 2),
+                                            1.2, 0.8, **kw))
+        return applies(ops, 420), 0
+
+    def spaces():
+        ops = []
+        for p in (1, 2, 3):
+            for m, cls in ((mk.make_cartesian_3d(2, 2, 2), ho), (mk.make_cartesian_2d(3, 3), ho),
+                           (mk.make_cartesian_3d_tet(2, 2, 1), sx),
+                           (mk.make_cartesian_2d_tri(3, 2), sx)):
+                if cls is ho:
+                    nds, rts = ho.NDSpaceHO(m, p), ho.RTSpaceHO(m, p)
+                else:
+                    nds, rts = sx.NDSimplexSpace(m, p), sx.RTSimplexSpace(m, p)
+                ops += [vf.build_nd_operator(nds, 1.3, 0.7, nq1d=p + 2, **kw),
+                        vf.build_rt_operator(rts, 1.3, 0.7, nq1d=p + 2, **kw)]
+        m = mk.make_cartesian_3d(2, 2, 2)
+        ops += [vf.build_nd_operator(NDSpace(m), 1.0, 1.0, **kw),
+                vf.build_rt_operator(RTSpace(m), 1.0, 1.0, **kw)]
+        return applies(ops, 430), 0
+
+    def ex22():
+        omega, sigma = 1.5, 0.8
+        sp = ho.NDSpaceHO(mk.make_cartesian_3d(2, 2, 2), 2)
+        from cardiac_ablation_ecm2_tpu_torch.examples.ex3_maxwell import exact_field
+
+        op_r = vf.build_nd_operator(sp, -omega ** 2, 1.0, nq1d=4, **kw)
+        op_i = vf.build_nd_operator(sp, omega * sigma, None, nq1d=4, **kw)
+        A = cf.ComplexOperator(op_r, op_i, sp.ndof)
+        cr = 2 * np.pi ** 2 - omega ** 2
+        b = cf.cstack(vf.vecfe_linear_form(op_r, lambda x: cr * exact_field(x)),
+                      vf.vecfe_linear_form(op_r, lambda x: omega * sigma * exact_field(x)))
+        ess = sp.essential_dofs(None)
+        Ac, B = cf.form_complex_linear_system(A, ess, torch.zeros_like(b), b)
+        mask = torch.zeros(sp.ndof, **kw)
+        mask[torch.as_tensor(ess, dtype=torch.int64, device=d)] = 1.0
+        z, info = gmres(Ac.mult, B, M=cf.complex_jacobi(A, ess_mask=mask), rel_tol=1e-11,
+                        max_iter=4000, restart=250)
+        return [z], info.iterations
+
+    def ex25():
+        k, pml_x = np.pi, 3.0
+        cpml = 2.0 * 5.0 / k
+
+        def d0(x):
+            return 1.0 + 1j * cpml * np.maximum(np.asarray(x.cpu())[..., 0] - pml_x, 0.0)
+
+        def mass_c(x):
+            dd = d0(x)
+            z = np.zeros_like(dd)
+            return -k ** 2 * np.stack([np.stack([1.0 / dd, z], -1),
+                                       np.stack([z, dd], -1)], -2)
+
+        sp = ho.NDSpaceHO(mk.make_cartesian_2d(8, 2, 4.0, 1.0), 2)
+        mats = [vf.build_nd_operator(sp, lambda x, f=f: f(mass_c(x)),
+                                     lambda x, f=f: f(1.0 / d0(x)), nq1d=4, **kw)
+                .assemble_matrix().toarray() for f in (np.real, np.imag)]
+        return [torch.as_tensor(a) for a in mats], 0
+
+    return eig, mixed, restricted, spaces, ex22, ex25
+
+
+REST_VECFE = ("Maxwell eigenvalues ND_2 4x4 (LOBPCG, 40 iterations)",
+              "the mixed family on 3^3 (nine operators, mult and mult_t)",
+              "ND/RT_R2D on quads and triangles, ND_R1D",
+              "ND/RT operators at orders 1-3 on hexes, quads, tets, triangles",
+              "ex22 problem 1 on ND_2 2^3 (GMRES)", "ex25 PML beam 8x2 ND_2")
+
+
+def phase_rest_vecfe(dev):
+    """[41] the rest of the slice at the JAX tests' sizes, card against CPU in
+    float64; returns the card runs' launches."""
+    t0 = time.perf_counter()
+    start_main_path()
+    for i, label in enumerate(REST_VECFE):
+        both(label, lambda d: rest_vecfe(d)[i](), dev, tag="[41]")
+    launches = vecfe_launches()
+    print(f"[41] launches on the card's runs: " + launch_line(launches))
+    for k in ("gather_sum", "segment_sum"):
+        check(launches[k] > 0, f"[41] the card's runs launched {k}")
+    print(f"[41] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def pvec_rhs(x):
+    return np.stack([np.ones_like(x[..., 0]), x[..., 1], x[..., 0]], axis=-1)
+
+
+def _pvec_rank(rank, world, dev, space):
+    """[42]'s rank body: the sharded Jacobi and AMS solves (u, count,
+    seconds) and the rank's restrictions."""
+    from cardiac_ablation_ecm2_tpu_torch.parallel import pvecfe
+    from cardiac_ablation_ecm2_tpu_torch.utils.config import elapsed
+
+    out, restr = {}, []
+    for prec in ("jacobi", "ams"):
+        pv = pvecfe.setup(space, mass_coeff=1.0, curlcurl_coeff=1.0, rhs_fn=pvec_rhs,
+                          ess_bdr=sorted(set(space.mesh.bdr_attributes.tolist())),
+                          rel_tol=1e-6, max_iter=4000, precond=prec,
+                          dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        u, its, _ = pv.solve()
+        out[prec] = (u, its, elapsed(t0, dev))
+        restr.append(pv.local.restr)
+        if pv.ams is not None:
+            restr.append(pv.ams["h1_restr"])
+    return out, restr
+
+
+def phase_pvecfe(kc, dev):
+    """[42] the sharded ND solve at world 1 over NCCL on PVEC_N³ against the
+    serial port; returns the sharded runs' launches."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.fe_vector import NDSpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    mesh = make_cartesian_3d(PVEC_N, PVEC_N, PVEC_N)
+    nd = NDSpace(mesh)
+    op, A, dg, b = ex3_system(nd, dev, torch.float32, pvec_rhs)
+    x, info = cg(A, b, M=lambda r: r / dg, rel_tol=1e-6, max_iter=4000)
+    x = x.double().cpu().numpy()
+    del op, A, dg, b
+    start_main_path()
+    out, restr = launch.run_single(lambda r, w, d: _pvec_rank(r, w, d, nd))
+    launches = vecfe_launches()
+    scale = np.abs(x).max()
+    # the Jacobi pair is one operator and one preconditioner (1e-5); the
+    # in-shard AMS iterate is another solve to rel_tol 1e-6 in float32, as
+    # far from the serial one as the operator's condition lets it be (1e-3)
+    for prec, (u, its, secs) in out.items():
+        err = float(np.abs(u - x).max() / scale)
+        print(f"[42] sharded ND {PVEC_N}^3 ({nd.ndof:,} dofs) world 1 over NCCL, {prec}: "
+              f"{its} CG, {secs:.2f} s, {err:.2e} of max|u| from the serial Jacobi-PCG "
+              f"({info.iterations} CG)")
+        tol = 1e-5 if prec == "jacobi" else 1e-3
+        check(err <= tol, f"[42] sharded {prec} within {tol:g} of the serial port "
+              f"({err:.2e})")
+    check(out["jacobi"][1] == info.iterations, "[42] sharded Jacobi takes the serial count")
+    check(out["ams"][1] < out["jacobi"][1], "[42] the in-shard AMS takes fewer iterations")
+    print(f"[42] launches " + launch_line(launches))
+    for i, (rr, what) in enumerate(zip(restr, ("local ND map (Jacobi) ", "local ND map (AMS) ",
+                                               "local H1 map (AMS) "))):
+        check_restriction(kc, rr, what, "[42]", seed=420 + i)
+    print(f"[42] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def phase_dryrun():
     """``dryrun_multichip`` over every visible card (one spawned rank a
     card, NCCL)."""
@@ -4506,6 +5365,10 @@ def main():
     configure(quad_extra=0)          # bench.py's setting: nq1d = p + 1
     phase_build()
 
+    # the n=66 tet mesh's Delaunay (30-50 s on the host) runs in a worker
+    # process beside the hex phases
+    tet_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    tet_built = tet_pool.submit(cardiac_tet_mesh, 66)
     kc = KernelCheck(dev)
     phase_kernel_random(kc)
     t0 = time.perf_counter()
@@ -4527,7 +5390,12 @@ def main():
         hex_fes.__dict__.pop(cache, None)
     del fes
 
-    mesh, fes, host_s = tet_space(66)
+    t0 = time.perf_counter()
+    built = tet_built.result()
+    tet_pool.shutdown()
+    print(f"[7] the tet mesh from its worker process: built in {built[1]:.2f} s, "
+          f"waited {time.perf_counter() - t0:.2f} s for it")
+    mesh, fes, host_s = tet_space(66, built)
     check((mesh.ne, fes.ndof) == (956_820, 1_278_670), "tet n=66 mesh size")
     phase_tet_restriction(kc, fes)
     ell_numbers = phase_ell_kernel(dev, fes)
@@ -4553,10 +5421,12 @@ def main():
     phase_ablation_small(dev, make_cardiac_hex_mesh(
         16, lengths=(L, L, L / 2), electrode_radius=0.004))
     phase_ablation_main(dev, hex_mesh, mesh_s)
-    _, poisson_ref = phase_poisson(kc, dev, hex_mesh)
+    _, poisson_ref = phase_poisson(kc, dev, hex_mesh, hex_fes)
     phase_par_poisson(kc, dev, hex_mesh, poisson_ref)
     del hex_mesh, poisson_ref
-    phase_heat(kc, dev)
+    for cache in ("_restrictions", "_geom_factors", "_bdr_restrictions", "_bdr_geom"):
+        hex_fes.__dict__.pop(cache, None)
+    phase_heat(kc, dev, n=EX16_N)
     phase_entry(dev)
     bp_launches, bp_numbers = phase_bp(kc, dev)
     phase_elasticity(kc, dev)
@@ -4572,6 +5442,7 @@ def main():
     hyper_launches, _ = phase_hyperelastic(kc, dev, beam_fes)
     del beam_fes
     wave_launches, _ = phase_wave(kc, dev, hex_fes)
+    mag_mesh = hex_fes.mesh          # the n=126 mesh, for [39]
     del hex_fes
     rest_launches = phase_rest(dev)
     adv_fes, dg_launch, u_par, dg_numbers = phase_dg_advection(kc, dev)
@@ -4580,6 +5451,12 @@ def main():
     del adv_fes, sipg_fes, u_par, x_sipg
     condense_launch = phase_condense_complex(kc, dev)
     phase_rest_dg(kc, dev)
+    ams_launch, jac_launch, ex3_numbers = phase_ex3(kc, dev)
+    mag_launch = phase_magnetic(kc, dev, mag_mesh)
+    del mag_mesh
+    hdiv_launch = phase_hdiv(kc, dev)
+    vrest_launch = phase_rest_vecfe(dev)
+    pvec_launch = phase_pvecfe(kc, dev)
     phase_dryrun()
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -4588,6 +5465,12 @@ def main():
         """[33]-[36]'s launches of kernel k."""
         return dict(dg_launches=dg_launch[k], sipg_launches=sipg_launch[k],
                     pdg_launches=pdg_launch[k], condense_launches=condense_launch[k])
+
+    def vecfe_path_launches(k):
+        """[38]-[42]'s launches of kernel k."""
+        return dict(ex3_ams_launches=ams_launch[k], ex3_jacobi_launches=jac_launch[k],
+                    magnetic_launches=mag_launch[k], hdiv_launches=hdiv_launch[k],
+                    vecfe_rest_launches=vrest_launch[k], pvecfe_launches=pvec_launch[k])
 
     # the restriction's kernels at their hex main-path shapes, float32: the
     # element-major L->E (the residual's), the L->E into (nd, ne) and the
@@ -4638,7 +5521,9 @@ def main():
                      example_launches=example_launches[k],
                      hyperelastic_launches=hyper_launches[k],
                      wave_launches=wave_launches[k], rest_launches=rest_launches[k],
-                     **dg_path_launches(k))
+                     **dg_path_launches(k), **vecfe_path_launches(k))
+        if k in ex3_numbers:
+            entry.update({f"ex3_{f}": v for f, v in ex3_numbers[k].items()})
         if k in bp_rows:
             entry.update({f"refined_{f}": kc.times[f"refined fine {bp_rows[k]}"][f]
                           for f in ("ms", "plain_ms", "bound_ms", "library_ms")})
@@ -4667,7 +5552,8 @@ def main():
              example_launches=example_launches["fused_diffusion"],
              wave_launches=wave_launches["fused_diffusion"],
              rest_launches=rest_launches["fused_diffusion"],
-             **dg_path_launches("fused_diffusion")),
+             **dg_path_launches("fused_diffusion"),
+             **vecfe_path_launches("fused_diffusion")),
     ] + [dict(name=k, route="cuda", **KERNELS[k], **probe_numbers[k],
               measures=PROBE_MEASURES) for k in PROBE_KERNELS]}))
     print(json.dumps({"ok": True, "device": {

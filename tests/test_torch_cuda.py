@@ -1076,3 +1076,108 @@ def test_sharded_dg_world1_nccl_equals_serial(cuda):
     dg = D.diagonal()
     xs, info = cg(D.mult, b, M=lambda v: v / dg, rel_tol=1e-10)
     assert its == info.iterations and torch.equal(x, xs.cpu())
+
+
+def _all_layouts_bitwise(r, dev, seed):
+    """Every kernel and layout of the restriction ``r`` bitwise its plain
+    version, float32 and float64; each kernel launched."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for dtype in (torch.float32, torch.float64):
+        u = torch.randn(r.ndof, generator=gen, device=dev, dtype=dtype)
+        ue = torch.randn(r.ne * r.nd, generator=gen, device=dev, dtype=dtype)
+        before = {k: getattr(bg, k).launches
+                  for k in ("gather_sum", "gather_transpose", "segment_sum")}
+        pairs = [(bg.gather_sum(u, r.g), bg.gather_sum_plain(u, r.g)),
+                 (bg.gather_transpose(u, r.gm), bg.gather_transpose_plain(u, r.gm)),
+                 (bg.segment_sum(ue, r.slots, r.offsets),
+                  bg.segment_sum_plain(ue, r.slots, r.offsets)),
+                 (bg.segment_sum(ue, r.slotsT, r.offsets),
+                  bg.segment_sum_plain(ue, r.slotsT, r.offsets))]
+        for got, want in pairs:
+            assert torch.equal(_bits(got), _bits(want))
+        assert all(getattr(bg, k).launches > n for k, n in before.items())
+
+
+def test_vector_fe_maps_bitwise(cuda):
+    """The ND, RT, tensor-HO and simplex gather maps, the AMS edge and face
+    maps and the discrete curl's map, every kernel and layout."""
+    from cardiac_ablation_ecm2_tpu_torch.fem import fe_vector as fv
+    from cardiac_ablation_ecm2_tpu_torch.fem import fe_vector_ho as ho
+    from cardiac_ablation_ecm2_tpu_torch.fem import fe_vector_simplex as sx
+    from cardiac_ablation_ecm2_tpu_torch.linalg.ams import EdgeTransfer, FaceTransfer
+    from cardiac_ablation_ecm2_tpu_torch.ops.vecfe import discrete_curl
+
+    hexes = make_cardiac_hex_mesh(6, lengths=(0.04, 0.04, 0.02), electrode_radius=0.004)
+    tets = make_cartesian_3d_tet(4, 3, 3)
+    nd, rt, h1 = fv.NDSpace(hexes), fv.RTSpace(hexes), FESpace(hexes, 1)
+    maps = [ElementRestriction(s.gather_map, s.ndof, cuda) for s in (
+        nd, rt, ho.NDSpaceHO(hexes, 2), ho.RTSpaceHO(hexes, 3),
+        sx.NDSimplexSpace(tets, 3), sx.RTSimplexSpace(tets, 2))]
+    maps += [EdgeTransfer(nd, h1, torch.float64, cuda).restr,
+             FaceTransfer(hexes, h1, torch.float64, cuda).restr,
+             discrete_curl(nd, rt, device=cuda).restr]
+    for i, r in enumerate(maps):
+        _all_layouts_bitwise(r, cuda, 500 + i)
+
+
+def test_ams_pcg_cuda_equals_cpu(cuda):
+    """ex3's --ams problem over the 2³ → 8³ hierarchy in float64: AMS's CG
+    count equal on the card and the CPU and its iterate within 1e-10;
+    Jacobi's ~117 steps to 1e-10 sit in CG's round-off regime (116 on the
+    card against 118 on the CPU, measured), so its count is held within 3
+    and its iterate within 1e-7; the card's solves launch the restriction
+    kernels."""
+    from cardiac_ablation_ecm2_tpu_torch.examples.ex3_maxwell import (
+        ams_rhs,
+        hierarchy,
+        masked_system,
+    )
+    from cardiac_ablation_ecm2_tpu_torch.fem.fe_vector import NDSpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg.ams import make_ams
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.ops.vecfe import build_nd_operator, vecfe_linear_form
+
+    meshes = hierarchy(8)
+    nd, h1 = NDSpace(meshes[-1]), FESpace(meshes[-1], 1)
+    bdr = sorted(set(meshes[-1].bdr_attributes.tolist()))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        kw = dict(dtype=torch.float64, device=dev)
+        op = build_nd_operator(nd, 1.0, 1.0, **kw)
+        A, dg, b = masked_system(op, nd.essential_dofs(None), vecfe_linear_form(op, ams_rhs))
+        M = make_ams(nd, h1, A, dg, ess_bdr=bdr, meshes=meshes, **kw)
+        before = bg.segment_sum.launches
+        xj, ij = cg(A, b, M=lambda r: r / dg, rel_tol=1e-10, max_iter=4000)
+        xa, ia = cg(A, b, M=M, rel_tol=1e-10, max_iter=500)
+        out.append((xj.cpu(), xa.cpu(), ij.iterations, ia.iterations,
+                    bg.segment_sum.launches - before))
+    (gj, ga, gij, gia, launched), (cj, ca, cij, cia, _) = out
+    assert gia == cia and abs(gij - cij) <= 3 and gia < gij
+    assert launched >= 5 * (gia + 1) + gij + 1
+    for g, c, tol in ((gj, cj, 1e-7), (ga, ca, 1e-10)):
+        assert float((g - c).abs().max()) <= tol * float(c.abs().max())
+
+
+def _pvecfe_rank(rank, world, dev, space):
+    from cardiac_ablation_ecm2_tpu_torch.parallel import pvecfe
+
+    pv = pvecfe.setup(space, mass_coeff=1.0, curlcurl_coeff=1.0,
+                      rhs_fn=lambda x: np.stack([np.ones_like(x[..., 0]), x[..., 1],
+                                                 x[..., 0]], axis=-1),
+                      ess_bdr=sorted(set(space.mesh.bdr_attributes.tolist())),
+                      rel_tol=1e-10, precond="ams", dtype="float64", device=dev)
+    u, its, _ = pv.solve()
+    return u, its
+
+
+def test_pvecfe_world1_nccl_equals_gloo(cuda):
+    """parallel/pvecfe with the in-shard AMS at world size 1: NCCL on the
+    card against gloo on the CPU, equal counts, u within 1e-10."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.fe_vector import NDSpace
+    from cardiac_ablation_ecm2_tpu_torch.parallel import launch
+
+    space = NDSpace(make_cartesian_3d(6, 5, 4))
+    ug, ig = launch.run_single(lambda r, w, d: _pvecfe_rank(r, w, d, space))
+    uc, ic = launch.run_single(lambda r, w, d: _pvecfe_rank(r, w, d, space), "cpu")
+    assert ig == ic
+    assert np.abs(ug - uc).max() <= 1e-10 * np.abs(uc).max()

@@ -120,3 +120,16 @@ def test_unported_inputs_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             common.setup(args)
+
+
+def test_ex3_prints_jax_lines(capsys, monkeypatch):
+    """ex3 on ND₂ over 2³: the Jacobi-PCG count and the L2 error line equal
+    the root driver's (the ``--ams`` path's counts are held to JAX's by
+    ``test_torch_ams``; JAX's AMS driver run compiles for ~20 s)."""
+    from cardiac_ablation_ecm2_tpu_torch.examples import ex3_maxwell
+
+    argv = ["-n", "2", "-o", "2"] + CPU
+    ex3_maxwell.main(argv)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines == _jax_lines("ex3_maxwell", argv, capsys, monkeypatch), lines
+    assert lines[0] == "ND_2 on 8 hexes: 300 dofs"

@@ -27,3 +27,30 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "LEAKED []" in out.stdout, out.stdout
+
+
+VECTOR_FE = ("fem.fe_vector", "fem.fe_vector_ho", "fem.fe_vector_simplex", "ops.vecfe",
+             "ops.mixed_vecfe", "ops.block", "linalg.ams", "examples.ex3_maxwell",
+             "models.magnetic_diffusion", "models.darcy", "linalg.maxwell_eigen",
+             "ops.hybridization", "ops.complex_fem", "ops.vecfe_r", "parallel.pvecfe")
+
+
+def test_vector_fe_modules_import_no_jax():
+    """The vector-FE slice's modules are among those the walk reaches, and
+    importing them alone leaves JAX out too."""
+    probe = ("import importlib, pkgutil, sys\n"
+             "import cardiac_ablation_ecm2_tpu_torch as pkg\n"
+             "names = {m.name for m in pkgutil.walk_packages(pkg.__path__, "
+             "pkg.__name__ + '.')}\n"
+             f"mods = ['cardiac_ablation_ecm2_tpu_torch.' + m for m in {VECTOR_FE!r}]\n"
+             "assert set(mods) <= names, set(mods) - names\n"
+             "for m in mods:\n"
+             "    importlib.import_module(m)\n"
+             "print('LEAKED', sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith(('jax.', 'jaxlib', 'cardiac_ablation_ecm2_tpu.'))))\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", probe], cwd=root,
+                         env=dict(os.environ, PYTHONPATH=root),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout
