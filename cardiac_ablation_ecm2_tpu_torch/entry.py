@@ -11,11 +11,15 @@ the operator's dtype (the configured one) as JAX's type promotion does.
 ``device=None`` is the card.
 
 ``dryrun_multichip(n, device=None)`` runs, over n ranks (``parallel/``),
-one sharded SDIRK33 step of the 4×4×2 hex mesh of a 2 cm box, order 2, and
-one sharded DG advection apply with its ghost-face exchange
-(``parallel/dg``) on the 4×4 quad mesh, order 1: n cards over NCCL
-(``device=None``; fewer cards raise) or n gloo processes on the CPU
-(``device="cpu"``), and checks that both gathered results are finite.
+one sharded SDIRK33 step of the 4×4×2 hex mesh of a 2 cm box, order 2,
+and the JAX package's three wider parts: (a) a sharded nonconforming
+Poisson solve with its ghost-master layer (``parallel/pnc``) on the 4×4
+quad mesh with one corner refined, order 2; (b) one sharded DG advection
+apply with its ghost-face exchange (``parallel/dg``) on the 4×4 quad mesh,
+order 1; (c) a sharded ND solve with the in-shard AMS.  It runs on n cards
+over NCCL (``device=None``; fewer cards raise) or in n gloo processes on
+the CPU (``device="cpu"``), and checks that every gathered result is
+finite.
 """
 
 from __future__ import annotations
@@ -75,7 +79,23 @@ def _dryrun_rank(rank, world, device):
                         solver="sdirk33", rel_tol=1e-8, max_iter=100,
                         device=device)
     T, _ = sim.step(sim.T0, 0.0, 0.5)
-    return sim.gather(T), _dryrun_dg(device), _dryrun_vecfe(device)
+    return (sim.gather(T), _dryrun_nc(device), _dryrun_dg(device),
+            _dryrun_vecfe(device))
+
+
+def _dryrun_nc(device):
+    """The JAX dryrun's part (a): a sharded NC Poisson solve with a
+    ghost-master layer on make_cartesian_2d(4, 4), one corner refined."""
+    from .fem.ncfespace import NCFESpace
+    from .mesh.ncmesh import make_nc, refine_quads
+    from .parallel import pnc
+
+    nc = make_nc(make_cartesian_2d(4, 4))
+    cent = nc.mesh.vertices[nc.mesh.elements].mean(axis=1)
+    nc, _ = refine_quads(nc, (cent[:, 0] < 0.5) & (cent[:, 1] < 0.5))
+    u, _, _ = pnc.setup(NCFESpace(nc, 2, device=device), rel_tol=1e-8,
+                        device=device).solve()
+    return u
 
 
 def _dryrun_dg(device):
@@ -111,17 +131,18 @@ def _dryrun_vecfe(device):
 
 
 def dryrun_multichip(n_devices: int, device=None) -> np.ndarray:
-    """One full sharded bioheat step, one sharded DG advection apply and one
-    sharded ND solve with the in-shard AMS over ``n_devices`` ranks (the
-    JAX package's ``dryrun_multichip`` parts but (a), whose NC sharded path
-    waits for ``parallel/pnc``).  Returns the gathered global
-    temperature."""
+    """One full sharded bioheat step, one sharded NC Poisson solve, one
+    sharded DG advection apply and one sharded ND solve with the in-shard
+    AMS over ``n_devices`` ranks (the JAX package's ``dryrun_multichip``
+    and its parts (a)–(c)).  Returns the gathered global temperature."""
     if device is None and torch.cuda.device_count() < n_devices:
         raise RuntimeError(f"dryrun_multichip({n_devices}) needs {n_devices} "
                            f"cards; {torch.cuda.device_count()} are visible")
-    out, du, u_nd = launch.spawn(_dryrun_rank, n_devices, device)[0]
+    out, u_nc, du, u_nd = launch.spawn(_dryrun_rank, n_devices, device)[0]
     if not np.isfinite(out).all():
         raise RuntimeError("sharded step produced non-finite values")
+    if not np.isfinite(u_nc).all():
+        raise RuntimeError("sharded NC Poisson solve produced non-finite values")
     if not np.isfinite(du).all():
         raise RuntimeError("sharded DG apply produced non-finite values")
     if not np.isfinite(u_nd).all():

@@ -144,10 +144,14 @@ def space_of(mesh, order: int, fes: Optional[FESpace] = None) -> FESpace:
     return fes
 
 
-def build(fes: FESpace, ndev: int, parts: np.ndarray = None) -> ParFESpace:
+def build(fes: FESpace, ndev: int, parts: np.ndarray = None,
+          extra_dofs: Optional[List[np.ndarray]] = None) -> ParFESpace:
     """The tables of ``fes`` split over ``ndev`` ranks by ``parts`` (default
-    ``partition_mesh``).  The JAX package's ``extra_dofs`` (ghost dofs of
-    NC masters, for ``parallel/pnc.py``) is not ported."""
+    ``partition_mesh``).  ``extra_dofs`` (optional, one array a rank): global
+    dofs to add to the rank's local set beyond those of its elements — the
+    ghost dofs of NC constraint masters (``parallel/pnc.py``; ParNCMesh's
+    ghost layer).  They join the halo-exchange tables like any shared
+    dof."""
     mesh = fes.mesh
     gm = fes.gather_map.astype(np.int64)           # (ne, nd)
     ne, nd = gm.shape
@@ -167,12 +171,14 @@ def build(fes: FESpace, ndev: int, parts: np.ndarray = None) -> ParFESpace:
         if len(e) < ne_loc:
             elems[d, len(e):] = e[0] if len(e) else 0
 
-    # local dof sets (real elements only), sorted by global id: a marker
-    # array gives np.unique's result in linear time
+    # local dof sets (real elements and extra dofs), sorted by global id: a
+    # marker array gives np.unique's result in linear time
     gdofs = []
     for e in dev_elems:
         seen = np.zeros(fes.ndof_scalar, dtype=bool)
         seen[gm[e].reshape(-1)] = True
+        if extra_dofs is not None:
+            seen[np.asarray(extra_dofs[len(gdofs)], dtype=np.int64)] = True
         gdofs.append(np.nonzero(seen)[0])
     nloc = max(len(g) for g in gdofs)
 

@@ -419,9 +419,35 @@ Phases, in order; any failure raises and the exit code is non-zero:
    dofs): Jacobi held to the serial port's solve (1e-5 of max|u|, equal CG
    counts), the in-shard AMS within 1e-3; the rank's maps bitwise.
 
+43. The NC slice's main path, an NC-refined cardiac hex RF-Laplace solve:
+   ``make_cardiac_hex_mesh(48)`` (55,025 warped hexes; cut from 64 to stay
+   under the time limit on a slow host), ``make_nc``, two
+   isotropic 2:1 rounds on the centroids within 10 mm, then 7 mm, of the
+   electrode centre (20, 20, 20) mm; ``NCFESpace`` order 2; the diffusion
+   PA operator (lane-major, per point) under PᵀAP; the electrode
+   (attribute 2) at 1, the ground pad (3) at 0; cg with M the identity,
+   float32, rel_tol 1e-6.  Prints the host seconds of each stage, the
+   hexes, hanging entities and slave dofs, the device set-up, the CG
+   count, ms an iteration, the true residual (≤ 1e-3) and the peak; holds
+   the launches to the applies times one ``gather_sum`` (P), one
+   ``gather_transpose`` and two ``segment_sum`` (the PA apply and Pᵀ)
+   each; P and Pᵀ bitwise their plain versions and timed, ⟨Pᵀv, u⟩ =
+   ⟨v, Pu⟩ within 1e-5; the master map and the broken space's map
+   bitwise; the ZZ estimate's largest and median values.
+44. The rest of the NC slice: the [43] pipeline on
+   ``make_cardiac_hex_mesh(24)`` in float64 to rel_tol 1e-12, card against
+   CPU (1e-10 of max|u|, counts within 2; the CPU solve runs in a worker
+   process from the start of the script, on one thread); ``parallel/pnc``
+   at world 1 over NCCL on [43]'s space against its serial form on the
+   card (Jacobi-PCG, counts within 2, 1e-4 of max|u|) and the rank's
+   master map bitwise; the NC tet order-2 case and the ``AMRForest`` ex15
+   loop at the JAX tests' sizes against the CPU; the ex15 and
+   boundary-layer drivers at their defaults on the card as subprocesses.
+
 Last, ``dryrun_multichip(torch.cuda.device_count())``: one spawned rank a
-card over NCCL, the sharded bioheat step, a sharded DG apply and a sharded
-ND solve with the in-shard AMS.
+card over NCCL, the sharded bioheat step and the JAX dryrun's parts (a) a
+sharded NC Poisson solve, (b) a sharded DG apply and (c) a sharded ND
+solve with the in-shard AMS.
 
 The last two lines of standard output are one JSON object describing the
 kernels and one JSON object with the device.  The ``gather_sum``,
@@ -464,6 +490,12 @@ slot list.  The restriction and ``fused_diffusion`` entries carry
 ADS solves), ``vecfe_rest_launches`` ([41]'s card runs) and
 ``pvecfe_launches`` ([42]); the ``gather_sum`` and ``segment_sum`` entries
 ``ex3_*`` fields, their float32 numbers on [38]'s ND map (2,097,152 × 12).
+Every restriction entry carries ``nc_launches`` ([43]'s solve) and
+``pnc_launches`` ([44]'s sharded run), the ``fused_diffusion`` entry
+``pnc_launches``; the ``gather_sum`` and
+``segment_sum`` entries ``nc_map_*`` fields, their float32 numbers on
+[43]'s (n_slaves, width) master map, and ``nc_p_*`` / ``nc_pt_*``, P's
+and Pᵀ's times whole against their plain versions.
 """
 
 from __future__ import annotations
@@ -5343,15 +5375,441 @@ def phase_pvecfe(kc, dev):
     return launches
 
 
+# [43]-[44]: the NC slice.  [43] is an NC-refined cardiac hex RF-Laplace
+# solve (the JAX drivers' composition): make_cardiac_hex_mesh(NC_N), make_nc,
+# then isotropic 2:1 rounds on the centroids within NC_ROUNDS mm of the
+# electrode centre; order 2, the diffusion PA operator, PᵀAP, the electrode
+# (attribute 2) at 1 and the ground pad (3) at 0, cg with M the identity in
+# float32 to rel_tol 1e-6.  NC_N is cut from 64 (341,965 hexes, 2,745,961
+# conforming dofs) to 48: at 64 the script took 1,204.5 s on a slow host,
+# over its 1,200-s limit (PERF.md section 4 gives the saving).
+NC_N = 48
+NC_SMALL_N = 24
+NC_ROUNDS = (10.0, 7.0)
+NC_CENTRE = np.array([20.0, 20.0, 20.0])
+NC_SOLVE = dict(rel_tol=1e-6, max_iter=4000)
+# [44]'s float64 card-against-CPU solve: with M the identity, CG at this
+# size (~700 iterations) amplifies round-off, so two runs 1e-15 apart end
+# 8e-7 of max|u| apart at rel_tol 1e-6, 1.4e-10 at 1e-10 and 2.1e-12 at
+# 1e-12 with equal counts (CPU, float64)
+NC_SMALL_TOL = 1e-12
+NC_SMALL_THREADS = 1
+NC_DRIVERS = (("ex15_dynamic_amr", ()), ("boundary_layer_amr", ()))
+NC_DRIVER_LAST = {"ex15_dynamic_amr": "step 4: elements=",
+                  "boundary_layer_amr": "rounds=3: elements="}
+
+
+def nc_refined(n):
+    """``make_cardiac_hex_mesh(n)``, ``make_nc`` and the electrode rounds:
+    (nc, host seconds of the mesh, of make_nc and of each round)."""
+    from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
+    from cardiac_ablation_ecm2_tpu_torch.mesh.ncmesh import make_nc, refine_hexes
+
+    t = [time.perf_counter()]
+    mesh = make_cardiac_hex_mesh(n)
+    t.append(time.perf_counter())
+    nc = make_nc(mesh)
+    t.append(time.perf_counter())
+    for r in NC_ROUNDS:
+        cent = nc.mesh.vertices[nc.mesh.elements].mean(axis=1)
+        nc, _ = refine_hexes(nc, np.linalg.norm(cent - NC_CENTRE, axis=1) < r)
+        t.append(time.perf_counter())
+    return nc, np.diff(t)
+
+
+def nc_rf_system(sp, dev, dtype):
+    """The RF-Laplace system on the NC space ``sp``: the masked PᵀAP operator,
+    its right-hand side, the lifted boundary values and the broken operator."""
+    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
+
+    A_L = BilinearForm(sp.fes, dev).add_domain_integrator("diffusion").assemble(
+        dtype=dtype)
+    Ac = sp.constrained_operator(A_L.mult)
+    m = torch.zeros(sp.ndof_conf, dtype=dtype, device=dev)
+    xb = torch.zeros(sp.ndof_conf, dtype=dtype, device=dev)
+    for attr, value in ((2, 1.0), (3, 0.0)):
+        ess = torch.as_tensor(sp.essential_dofs([attr]), dtype=torch.long, device=dev)
+        m[ess] = 1.0
+        xb[ess] = value
+
+    def A(v):
+        return Ac(v * (1 - m)) * (1 - m) + v * m
+
+    B = -Ac(xb) * (1 - m) + xb
+    return A, B, xb, m, A_L
+
+
+def nc_rf_solve(sp, dev, dtype, rel_tol):
+    """(u, CG count, true relative residual) of the RF-Laplace solve."""
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+
+    A, B, _, _, _ = nc_rf_system(sp, dev, dtype)
+    x, info = cg(A, B, M=lambda r: r, rel_tol=rel_tol, max_iter=NC_SOLVE["max_iter"])
+    return x, info.iterations, rel_residual(A, x, B)
+
+
+def nc_small_cpu():
+    """[44]'s CPU side, run in a worker process from the start of the
+    script on NC_SMALL_THREADS threads (its float64 CG to 1e-12 takes 1–3
+    minutes on 2–4 threads), so that it is done long before [44] and takes
+    little from the phases it runs beside: (the n = NC_SMALL_N NC mesh, its
+    host seconds, u as numpy, the CG count, the true residual)."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.ncfespace import NCFESpace
+    from cardiac_ablation_ecm2_tpu_torch.utils.config import configure
+
+    torch.set_num_threads(NC_SMALL_THREADS)
+    configure(quad_extra=0)
+    nc, host_s = nc_refined(NC_SMALL_N)
+    x, its, res = nc_rf_solve(NCFESpace(nc, 2, device="cpu"), "cpu", torch.float64,
+                              NC_SMALL_TOL)
+    return nc, host_s, x.numpy(), its, res
+
+
+def start_nc_drivers():
+    """The slice's two drivers at their defaults on the card, as subprocesses
+    (``EXAMPLE_RUN``: each prints its launches last)."""
+    import sys
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    return {name: subprocess.Popen(
+        [sys.executable, "-c", EXAMPLE_RUN, name, *args], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, args in NC_DRIVERS}
+
+
+def phase_nc_main(kc, dev):
+    """[43] the NC-refined cardiac hex RF-Laplace solve; returns (the NC
+    space, its broken PA operator, the solve's launches, the kernels line's
+    P/Pᵀ numbers)."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import restriction_for
+    from cardiac_ablation_ecm2_tpu_torch.fem.estimators import zz_estimator
+    from cardiac_ablation_ecm2_tpu_torch.fem.ncfespace import (
+        NCFESpace,
+        prolongate_plain,
+        restrict_t_plain,
+    )
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+
+    t_phase = time.perf_counter()
+    nc, host_s = nc_refined(NC_N)
+    t0 = time.perf_counter()
+    sp = NCFESpace(nc, 2, device=dev)
+    torch.cuda.synchronize()
+    ncfes_s = time.perf_counter() - t0
+    print(f"[43] host: make_cardiac_hex_mesh({NC_N}) {host_s[0]:.2f} s, "
+          f"make_nc {host_s[1]:.2f} s, rounds "
+          f"{host_s[2]:.2f} s and {host_s[3]:.2f} s, NCFESpace {ncfes_s:.2f} s")
+    print(f"[43] {nc.mesh.ne:,} hexes; hanging: {len(nc.constraints):,} edge, "
+          f"{len(nc.face_constraints):,} face, {len(nc.half_face_constraints):,} "
+          f"half-face ({nc.n_hanging:,}); {sp.n_slaves:,} slave dofs (width "
+          f"{sp.slave_masters.shape[1]}), {sp.ndof_conf:,} conforming of "
+          f"{sp.fes.ndof_scalar:,} broken order-2 dofs")
+    check(nc.mesh.ne > 100_000 and sp.n_slaves > 0 and len(nc.face_constraints) > 0,
+          "[43] the NC mesh is refined and has face hangers")
+    t0 = time.perf_counter()
+    A, B, xb, m, A_L = nc_rf_system(sp, dev, torch.float32)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    ledger = LaunchLedger()
+    A_counted = ledger.wrap("A", A)
+    start_main_path()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    x, info = cg(A_counted, B, M=lambda r: r, **NC_SOLVE)
+    b.record()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in main_path_launches().items() if k in RESTRICTION_KERNELS}
+    peak = peak_gib()
+    its = info.iterations
+    solve_s = a.elapsed_time(b) / 1e3
+    res = rel_residual(A, x, B)
+    print(f"[43] device set-up {setup_s:.2f} s; cg {its} iterations in {solve_s:.3f} s, "
+          f"{solve_s * 1e3 / its:.4f} ms an iteration; true residual of PᵀAP {res:.3e}; "
+          f"peak {peak:.2f} GiB")
+    check(info.converged and res <= 1e-3, f"[43] converged, true residual ≤ 1e-3 ({res:.2e})")
+    bc_err = float(((x - xb) * m).abs().max())
+    check(bool(torch.isfinite(x).all()) and float(x.min()) > -0.05
+          and float(x.max()) < 1.05 and bc_err <= 1e-4,
+          f"[43] u finite, in [0, 1] up to order-2 overshoot, the boundary values "
+          f"kept ({bc_err:.1e})")
+    n_app = ledger.calls["A"]
+    per = dict(zip(RESTRICTION_KERNELS, ledger.per_call["A"][:3]))
+    print(f"[43] launches {', '.join(f'{k} {launches[k]}' for k in RESTRICTION_KERNELS)}; "
+          f"{n_app} applies of PᵀAP, each {per}")
+    check(n_app == its + 1 and not ledger.uneven, "[43] one apply an iteration and one "
+          "for the first residual, each launching the same kernels")
+    check(per == dict(gather_sum=1, gather_transpose=1, segment_sum=2),
+          f"[43] an apply: P's gather, the PA gather and sum, Pᵀ's segment-sum ({per})")
+    check(all(launches[k] == n_app * per[k] for k in RESTRICTION_KERNELS),
+          "[43] the launches equal the applies times the launches an apply")
+
+    # P and Pᵀ at this shape: kernel path against the plain one, bitwise
+    gen = torch.Generator(device=dev).manual_seed(43)
+    u = torch.randn(sp.ndof_conf, generator=gen, device=dev)
+    v = torch.randn(sp.fes.ndof_scalar, generator=gen, device=dev)
+    numbers = {}
+    for name, fn, plain, arg in (("P", sp.prolongate, prolongate_plain, u),
+                                 ("Pt", sp.restrict_t, restrict_t_plain, v)):
+        got, ref = fn(arg), plain(sp, arg)
+        check(torch.equal(bits(got), bits(ref)), f"[43] {name} bitwise its plain version")
+        numbers[name] = (time_ms(lambda: fn(arg)), time_ms(lambda: plain(sp, arg)))
+    lhs = float(sp.restrict_t(v).double() @ u.double())
+    rhs = float(v.double() @ sp.prolongate(u).double())
+    adj = abs(lhs - rhs) / abs(rhs)
+    print(f"[43] P {numbers['P'][0]:.4f} ms (plain {numbers['P'][1]:.4f}), Pᵀ "
+          f"{numbers['Pt'][0]:.4f} ms (plain {numbers['Pt'][1]:.4f}), float32; "
+          f"⟨Pᵀv, u⟩ against ⟨v, Pu⟩: {adj:.2e} relative")
+    check(adj <= 1e-5, f"[43] Pᵀ is P's adjoint ({adj:.2e})")
+    check_restriction(kc, sp.restr, "NC master map ", "[43]", seed=430, timed=True)
+    check_restriction(kc, restriction_for(sp.fes, dev), "NC broken space ", "[43]",
+                      seed=431)
+
+    eta = zz_estimator(sp.fes, sp.prolongate(x), dtype=x.dtype)
+    check(eta.shape == (nc.mesh.ne,) and np.isfinite(eta).all() and eta.max() > 0,
+          "[43] ZZ estimate finite")
+    print(f"[43] ZZ estimator on the prolongated solution: max {eta.max():.4e}, "
+          f"median {np.median(eta):.4e}, the largest at "
+          f"{np.linalg.norm(nc.mesh.vertices[nc.mesh.elements[eta.argmax()]].mean(axis=0) - NC_CENTRE):.2f} "
+          f"mm from the electrode centre")
+    print(f"[43] phase {time.perf_counter() - t_phase:.1f} s")
+    return sp, A_L, launches, dict(
+        nc_p_ms=numbers["P"][0], nc_p_plain_ms=numbers["P"][1],
+        nc_pt_ms=numbers["Pt"][0], nc_pt_plain_ms=numbers["Pt"][1])
+
+
+def _nc_rank(rank, world, dev, sp):
+    """[44]'s rank body: the sharded NC Poisson on ``sp`` (u, count, seconds)."""
+    from cardiac_ablation_ecm2_tpu_torch.parallel import pnc
+    from cardiac_ablation_ecm2_tpu_torch.utils.config import elapsed
+
+    solver = pnc.setup(sp, dtype=torch.float32, device=dev, **NC_SOLVE)
+    t0 = time.perf_counter()
+    u, its, _ = solver.solve()
+    return u, its, elapsed(t0, dev), solver.restr
+
+
+def nc_poisson_serial(sp, A_L, dev):
+    """The serial form of ``parallel/pnc``'s solve on the card: f = 1, u = 0 on
+    the whole boundary, Jacobi-PCG with the slave rows of the diagonal folded
+    into their masters with w²."""
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.ops.linearform import domain_lf
+
+    rt = torch.float32
+    Ac = sp.constrained_operator(A_L.mult)
+    m = torch.ones(sp.ndof_conf, dtype=rt, device=dev)
+    m[torch.as_tensor(sp.essential_dofs(), dtype=torch.long, device=dev)] = 0.0
+    b = sp.restrict_t(domain_lf(sp.fes, None, dtype=rt, device=dev)) * m
+    dL = A_L.diagonal()
+    w = sp.weights(rt)
+    dg = dL[sp._Lc] + sp.restr.mult_transpose(dL[sp._si][:, None] * w * w)
+    dg = torch.where(m > 0, dg, torch.ones_like(dg))
+    x, info = cg(lambda v: Ac(v * m) * m + v * (1 - m), b, M=lambda r: r / dg,
+                 **NC_SOLVE)
+    return x, info.iterations
+
+
+def nc_forest_loop(dev):
+    """test_derefine's ex15 moving-bump loop on ``dev`` in float64: the final
+    forest's NC mesh, its solve, the errors and the active counts."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.estimators import zz_estimator
+    from cardiac_ablation_ecm2_tpu_torch.fem.gridfunction import l2_error
+    from cardiac_ablation_ecm2_tpu_torch.mesh.forest import (
+        AMRForest,
+        threshold_derefine_nc,
+        threshold_refine_nc,
+    )
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_2d
+
+    forest = AMRForest(make_cartesian_2d(8, 8))
+    errs, counts = [], []
+    for t in (0.0, 0.25, 0.5):
+        cx = 0.25 + t
+
+        def u_ex(x, cx=cx):
+            return np.exp(-80.0 * ((x[..., 0] - cx) ** 2 + (x[..., 1] - 0.5) ** 2))
+
+        def f(x, cx=cx):
+            r2 = (x[..., 0] - cx) ** 2 + (x[..., 1] - 0.5) ** 2
+            return (320.0 - 25600.0 * r2) * torch.exp(-80.0 * r2)
+
+        for _ in range(2):
+            sp, uL = nc_dirichlet_solve(forest.nc(), u_ex, f, dev)
+            if not threshold_refine_nc(forest, zz_estimator(sp.fes, uL), frac=0.5,
+                                       max_elements=700):
+                break
+        sp, uL = nc_dirichlet_solve(forest.nc(), u_ex, f, dev)
+        eta = zz_estimator(sp.fes, uL)
+        threshold_derefine_nc(forest, eta, threshold=0.3 * eta.max())
+        nc = forest.nc()
+        sp, uL = nc_dirichlet_solve(nc, u_ex, f, dev)
+        errs.append(float(l2_error(sp.fes, uL, lambda x, cx=cx: torch.exp(
+            -80.0 * ((x[..., 0] - cx) ** 2 + (x[..., 1] - 0.5) ** 2)))))
+        counts.append(len(forest.active))
+    return nc, uL, errs, counts
+
+
+def nc_dirichlet_solve(nc, u_exact, f, dev, p=2):
+    """test_derefine's ``_solve_nc`` in float64 on ``dev``: (space, broken u)."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.ncfespace import NCFESpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
+    from cardiac_ablation_ecm2_tpu_torch.ops.linearform import domain_lf
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    sp = NCFESpace(nc, p, device=dev)
+    A = BilinearForm(sp.fes, dev).add_domain_integrator("diffusion").assemble(
+        dtype=torch.float64)
+    AC = sp.constrained_operator(A.mult)
+    ess = torch.as_tensor(sp.essential_dofs(), dtype=torch.long, device=dev)
+    xb = torch.as_tensor(u_exact(sp.dof_coords), **f64)
+    w = torch.zeros(sp.ndof_conf, **f64).index_copy(0, ess, xb[ess])
+    b = (sp.restrict_t(domain_lf(sp.fes, f, **f64)) - AC(w)).index_copy(0, ess, xb[ess])
+
+    def op(x):
+        return AC(x.index_fill(0, ess, 0.0)).index_copy(0, ess, x[ess])
+
+    x, info = cg(op, b, rel_tol=1e-10, max_iter=4000)
+    check(info.converged, "[44] forest solve converged")
+    return sp, sp.prolongate(x)
+
+
+def nc_tet_case(dev):
+    """The NC tet order-2 case of test_nctet (2×2×2 tets, one red round): the
+    masked Poisson solve in float64 (u, count) and P/Pᵀ of a seeded vector."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.ncfespace import NCFESpace
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_3d_tet
+    from cardiac_ablation_ecm2_tpu_torch.mesh.nctet import make_nc_tet, refine_tets_nc
+    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
+    from cardiac_ablation_ecm2_tpu_torch.ops.linearform import domain_lf
+
+    nc = make_nc_tet(make_cartesian_3d_tet(2, 2, 2))
+    cent = nc.mesh.vertices[nc.mesh.elements].mean(axis=1)
+    nc, _ = refine_tets_nc(nc, np.linalg.norm(cent, axis=1) < 0.6)
+    f64 = dict(dtype=torch.float64, device=dev)
+    sp = NCFESpace(nc, 2, device=dev)
+    A = BilinearForm(sp.fes, dev).add_domain_integrator("diffusion").assemble(
+        dtype=torch.float64)
+    AC = sp.constrained_operator(A.mult)
+    m = torch.ones(sp.ndof_conf, **f64)
+    m[torch.as_tensor(sp.essential_dofs(), dtype=torch.long, device=dev)] = 0.0
+    k2 = 3 * np.pi ** 2
+    b = sp.restrict_t(domain_lf(sp.fes, lambda x: k2 * torch.prod(
+        torch.sin(np.pi * x), dim=-1), **f64)) * m
+    x, info = cg(lambda v: AC(v * m) * m + v * (1 - m), b, rel_tol=1e-10, max_iter=6000)
+    rng = np.random.default_rng(44)
+    uc = torch.as_tensor(rng.standard_normal(sp.ndof_conf), **f64)
+    vL = torch.as_tensor(rng.standard_normal(sp.fes.ndof_scalar), **f64)
+    return (x.cpu().numpy(), info.iterations, sp.prolongate(uc).cpu().numpy(),
+            sp.restrict_t(vL).cpu().numpy(), len(nc.tri_face_constraints))
+
+
+def phase_nc_rest(kc, dev, sp, A_L, small):
+    """[44] the rest of the NC slice on the card: the [43] pipeline at n =
+    NC_SMALL_N in float64 against the CPU (``small``: the future of
+    ``nc_small_cpu``), ``parallel/pnc`` at world 1 over NCCL on [43]'s
+    space against the serial card solve, the NC tet order-2 case and the
+    AMRForest loop against the CPU, the two drivers as subprocesses.
+    Returns the launches of the sharded run."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.ncfespace import NCFESpace
+    from cardiac_ablation_ecm2_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    drivers = start_nc_drivers()
+    try:
+        t0 = time.perf_counter()
+        nc, host_s, xh, ith, _ = small.result()
+        waited = time.perf_counter() - t0
+        xc, itc, resc = nc_rf_solve(NCFESpace(nc, 2, device=dev), dev, torch.float64,
+                                    NC_SMALL_TOL)
+        xc = xc.cpu().numpy()
+        err = float(np.abs(xc - xh).max() / np.abs(xh).max())
+        from cardiac_ablation_ecm2_tpu_torch.mesh.ncmesh import _find_constraints_3d
+
+        over = len(_find_constraints_3d(nc.mesh)[3])
+        print(f"[44] NC RF-Laplace on make_cardiac_hex_mesh({NC_SMALL_N}) with two "
+              f"rounds ({nc.mesh.ne:,} hexes, {over} over-hung faces left by the "
+              f"balance, host {host_s.sum():.2f} s), float64, "
+              f"rel_tol {NC_SMALL_TOL:g}: card {itc} CG (true residual {resc:.2e}), CPU "
+              f"{ith} CG (waited {waited:.1f} s for its worker process); u "
+              f"{err:.2e} of max|u| apart")
+        check(err <= 1e-10 and abs(itc - ith) <= 2, "[44] card against CPU: u within "
+              "1e-10 of max|u|, CG counts within 2")
+
+        x_ser, its_ser = nc_poisson_serial(sp, A_L, dev)
+        start_main_path()
+        u, its, secs, restr = launch.run_single(lambda r, w, d: _nc_rank(r, w, d, sp))
+        par_launches = vecfe_launches()
+        x_ser = x_ser.double().cpu().numpy()
+        err = float(np.abs(u - x_ser).max() / np.abs(x_ser).max())
+        print(f"[44] parallel/pnc world 1 over NCCL on [43]'s space: {its} CG in "
+              f"{secs:.2f} s against the serial card solve's {its_ser}; u {err:.2e} of "
+              f"max|u| apart; launches " + launch_line(par_launches))
+        check(abs(its - its_ser) <= 2 and err <= 1e-4, "[44] sharded NC Poisson: counts "
+              "within 2, u within 1e-4 of max|u|")
+        check(par_launches["gather_sum"] > 0 and par_launches["segment_sum"] > 0,
+              "[44] the sharded NC solve launched the rank's gather and segment-sum")
+        check_restriction(kc, restr, "pnc local master map ", "[44]", seed=440)
+
+        card, cpu = nc_tet_case(dev), nc_tet_case("cpu")
+        err = float(np.abs(card[0] - cpu[0]).max() / np.abs(cpu[0]).max())
+        perr = max(float(np.abs(card[i] - cpu[i]).max() / np.abs(cpu[i]).max())
+                   for i in (2, 3))
+        print(f"[44] NC tets order 2 ({card[4]} tri-face masters), float64: card {card[1]} "
+              f"CG, CPU {cpu[1]}; u {err:.2e}, P/Pᵀ {perr:.2e} of max apart")
+        check(card[4] > 0 and err <= 1e-10 and abs(card[1] - cpu[1]) <= 2 and perr <= 1e-14,
+              "[44] NC tets: card against CPU")
+
+        nc_f, u_f, errs, counts = nc_forest_loop(dev)
+        _, u_h = nc_dirichlet_solve(nc_f, lambda x: np.exp(
+            -80.0 * ((x[..., 0] - 0.75) ** 2 + (x[..., 1] - 0.5) ** 2)),
+            lambda x: (320.0 - 25600.0 * ((x[..., 0] - 0.75) ** 2 + (x[..., 1] - 0.5) ** 2))
+            * torch.exp(-80.0 * ((x[..., 0] - 0.75) ** 2 + (x[..., 1] - 0.5) ** 2)), "cpu")
+        ferr = float((u_f.cpu() - u_h).abs().max() / u_h.abs().max())
+        print(f"[44] AMRForest ex15 loop on the card: L2 errors "
+              f"{', '.join(f'{e:.3e}' for e in errs)}, active counts {counts}; the last "
+              f"solve {ferr:.2e} of max|u| from the CPU's")
+        check(all(e < 2e-3 for e in errs) and counts[-1] < 700
+              and counts[-1] < 3 * counts[0] and ferr <= 1e-10, "[44] the forest loop")
+
+        for name, p in drivers.items():
+            try:
+                so, se = p.communicate(timeout=600)
+            finally:
+                p.kill()
+            lines = so.strip().splitlines()
+            for line in lines[:-1]:
+                print(f"[44] {name}: {line}")
+            check(p.returncode == 0, f"[44] {name} exits 0 (stderr: {se[-2000:]})")
+            check(lines[-2].startswith(NC_DRIVER_LAST[name]), f"[44] {name} prints its lines")
+            got = json.loads(lines[-1][len("LAUNCHES "):])
+            print(f"[44] {name} launches: " + ", ".join(f"{k} {v}" for k, v in got.items()))
+            if name == "boundary_layer_amr":
+                check(all(got[k] > 0 for k in RESTRICTION_KERNELS),
+                      "[44] the boundary-layer driver launched the restriction kernels")
+    finally:
+        for p in drivers.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(f"[44] phase {time.perf_counter() - t_phase:.1f} s")
+    return par_launches
+
+
 def phase_dryrun():
     """``dryrun_multichip`` over every visible card (one spawned rank a
-    card, NCCL)."""
+    card, NCCL): the sharded bioheat step, the sharded NC Poisson (a), DG
+    apply (b) and ND solve (c)."""
     from cardiac_ablation_ecm2_tpu_torch.entry import dryrun_multichip
 
     t0 = time.perf_counter()
     n = torch.cuda.device_count()
     out = dryrun_multichip(n)
-    print(f"[dryrun] dryrun_multichip({n}): {out.shape[0]} dofs, T_max "
+    print(f"[dryrun] dryrun_multichip({n}), the bioheat step and parts (a)-(c): "
+          f"{out.shape[0]} dofs, T_max "
           f"{out.max():.6f}, {time.perf_counter() - t0:.1f} s")
 
 
@@ -5369,6 +5827,9 @@ def main():
     # process beside the hex phases
     tet_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
     tet_built = tet_pool.submit(cardiac_tet_mesh, 66)
+    # [44]'s float64 CPU solve runs in a worker process from the start too
+    nc_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    nc_small = nc_pool.submit(nc_small_cpu)
     kc = KernelCheck(dev)
     phase_kernel_random(kc)
     t0 = time.perf_counter()
@@ -5457,6 +5918,10 @@ def main():
     hdiv_launch = phase_hdiv(kc, dev)
     vrest_launch = phase_rest_vecfe(dev)
     pvec_launch = phase_pvecfe(kc, dev)
+    nc_sp, nc_A, nc_launch, nc_numbers = phase_nc_main(kc, dev)
+    pnc_launch = phase_nc_rest(kc, dev, nc_sp, nc_A, nc_small)
+    nc_pool.shutdown()
+    del nc_sp, nc_A
     phase_dryrun()
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -5529,6 +5994,21 @@ def main():
                           for f in ("ms", "plain_ms", "bound_ms", "library_ms")})
     restriction[0].update({f"refined_round_trip_{f}": v
                            for f, v in refined_rt.items()})
+    # the NC slice: [43]'s solve and [44]'s sharded run; the master map's
+    # (n_slaves, width) L->E (P's read) and E->L (Pᵀ's sum), float32, and P
+    # and Pᵀ whole
+    nc_rows = {"gather_sum": "NC master map L->E (ne,nd) float32",
+               "segment_sum": "NC master map E->L (ne,nd) float32"}
+    for entry in restriction:
+        k = entry["name"]
+        entry.update(nc_launches=nc_launch[k], pnc_launches=pnc_launch[k])
+        if k in nc_rows:
+            entry.update({f"nc_map_{f}": kc.times[nc_rows[k]][f]
+                          for f in ("ms", "plain_ms", "bound_ms", "library_ms")})
+    restriction[0].update(nc_p_ms=nc_numbers["nc_p_ms"],
+                          nc_p_plain_ms=nc_numbers["nc_p_plain_ms"])
+    restriction[2].update(nc_pt_ms=nc_numbers["nc_pt_ms"],
+                          nc_pt_plain_ms=nc_numbers["nc_pt_plain_ms"])
     # the DG face route's float32 numbers at [33]'s interior-face read
     # (324,864 rows of 64) and slot list (49.5M slots into 7,077,888 dofs)
     restriction[2].update({f"dg_{f}": dg_numbers["segment_sum"][f]
@@ -5553,7 +6033,8 @@ def main():
              wave_launches=wave_launches["fused_diffusion"],
              rest_launches=rest_launches["fused_diffusion"],
              **dg_path_launches("fused_diffusion"),
-             **vecfe_path_launches("fused_diffusion")),
+             **vecfe_path_launches("fused_diffusion"),
+             pnc_launches=pnc_launch["fused_diffusion"]),
     ] + [dict(name=k, route="cuda", **KERNELS[k], **probe_numbers[k],
               measures=PROBE_MEASURES) for k in PROBE_KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 import jax
 import jax.numpy as jnp
 
@@ -37,6 +38,18 @@ from cardiac_ablation_ecm2_tpu.ops.operators import LinearOperator as JOperator
 from cardiac_ablation_ecm2_tpu.utils.config import config as jcfg
 from cardiac_ablation_ecm2_tpu.utils.config import configure as jconfigure
 from cardiac_ablation_ecm2_tpu_torch.benchmarks import bp
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: these sizes gain nothing from more, and a
+    parallel test run shares the cores between its workers; restored
+    after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 N = 4
 MODES = {"generic": {}, "structured": dict(structured=True),

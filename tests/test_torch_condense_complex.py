@@ -24,6 +24,18 @@ from cardiac_ablation_ecm2_tpu_torch.ops.condense import StaticCondensation, ele
 from cardiac_ablation_ecm2_tpu_torch.ops.linearform import domain_lf
 from cardiac_ablation_ecm2_tpu_torch.ops.operators import LinearOperator
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: these sizes gain nothing from more, and a
+    parallel test run shares the cores between its workers; restored
+    after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = dict(device="cpu")
 
 

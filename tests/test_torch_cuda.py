@@ -15,7 +15,8 @@ on CUDA equal to the CPU or bitwise to plain, the sharded bioheat
 step at world size 1 over NCCL equal to world size 1 over gloo, and the
 mesh core (2D restrictions bitwise to plain, ``HTransfer``, h-multigrid
 PCG and 2D Poisson on quads, triangles and curved quads) on CUDA equal to
-the CPU.
+the CPU, and the NC slice (P and Pᵀ bitwise their plain versions, NC
+solves and the sharded NC Poisson at world 1 over NCCL equal to the CPU).
 Needs an NVIDIA GPU and nvcc; skips without a GPU.  This file imports no
 JAX, so it also runs where JAX is not installed:
 
@@ -53,6 +54,18 @@ from cardiac_ablation_ecm2_tpu_torch.ops import ell
 from cardiac_ablation_ecm2_tpu_torch.ops import fused_diffusion as fd
 from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
 from cardiac_ablation_ecm2_tpu_torch.utils.config import config, configure
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: these sizes gain nothing from more, and a
+    parallel test run shares the cores between its workers; restored
+    after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 pytestmark = pytest.mark.cuda
 
@@ -1180,4 +1193,100 @@ def test_pvecfe_world1_nccl_equals_gloo(cuda):
     ug, ig = launch.run_single(lambda r, w, d: _pvecfe_rank(r, w, d, space))
     uc, ic = launch.run_single(lambda r, w, d: _pvecfe_rank(r, w, d, space), "cpu")
     assert ig == ic
+    assert np.abs(ug - uc).max() <= 1e-10 * np.abs(uc).max()
+
+
+def _nc_hex(n=8):
+    """The cardiac hex mesh n with the chip check's two electrode rounds."""
+    from cardiac_ablation_ecm2_tpu_torch.mesh.ncmesh import make_nc, refine_hexes
+
+    nc = make_nc(make_cardiac_hex_mesh(n))
+    for r in (10.0, 7.0):
+        cent = nc.mesh.vertices[nc.mesh.elements].mean(axis=1)
+        nc, _ = refine_hexes(nc, np.linalg.norm(cent - 20.0, axis=1) < r)
+    return nc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_nc_prolongation_kernels(cuda, dtype):
+    """NCFESpace's P and Pᵀ on the card: one gather-sum and one segment-sum
+    launch each, bitwise their plain versions, and (float64) within
+    1e-14·max of the CPU space's."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.ncfespace import (
+        NCFESpace,
+        prolongate_plain,
+        restrict_t_plain,
+    )
+
+    nc = _nc_hex()
+    sp, sh = NCFESpace(nc, 2, device=cuda), NCFESpace(nc, 2, device="cpu")
+    rng = np.random.default_rng(5)
+    u = torch.as_tensor(rng.standard_normal(sp.ndof_conf), dtype=dtype)
+    v = torch.as_tensor(rng.standard_normal(sp.fes.ndof_scalar), dtype=dtype)
+    g0, s0 = bg.gather_sum.launches, bg.segment_sum.launches
+    P, Pt = sp.prolongate(u.to(cuda)), sp.restrict_t(v.to(cuda))
+    torch.cuda.synchronize()
+    assert (bg.gather_sum.launches - g0, bg.segment_sum.launches - s0) == (1, 1)
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    assert torch.equal(P.view(bits), prolongate_plain(sp, u.to(cuda)).view(bits))
+    assert torch.equal(Pt.view(bits), restrict_t_plain(sp, v.to(cuda)).view(bits))
+    if dtype == torch.float64:
+        for got, ref in ((P, sh.prolongate(u)), (Pt, sh.restrict_t(v))):
+            assert (got.cpu() - ref).abs().max() <= 1e-14 * ref.abs().max()
+
+
+def _nc_solve(sp, dev):
+    """The masked PᵀAP Poisson solve of f = 1, u = 0 on the boundary, float64."""
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.ops.linearform import domain_lf
+
+    A = BilinearForm(sp.fes, dev).add_domain_integrator("diffusion").assemble(
+        dtype=torch.float64)
+    AC = sp.constrained_operator(A.mult)
+    m = torch.ones(sp.ndof_conf, dtype=torch.float64, device=dev)
+    m[torch.as_tensor(sp.essential_dofs(), dtype=torch.long, device=dev)] = 0.0
+    b = sp.restrict_t(domain_lf(sp.fes, None, dtype=torch.float64, device=dev)) * m
+    x, info = cg(lambda y: AC(y * m) * m + y * (1 - m), b, rel_tol=1e-10,
+                 max_iter=4000)
+    return x.cpu().numpy(), info.iterations
+
+
+@pytest.mark.parametrize("kind", ["hex", "tet"])
+def test_nc_solve_cuda_equals_cpu(cuda, kind):
+    """The constrained solve on an NC cardiac hex mesh (order 2) and an NC tet
+    mesh (order 2, tri-face constraints): card against CPU, u within
+    1e-10·max|u|, CG counts within 2."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.ncfespace import NCFESpace
+    from cardiac_ablation_ecm2_tpu_torch.mesh.nctet import make_nc_tet, refine_tets_nc
+
+    if kind == "hex":
+        nc = _nc_hex(6)
+    else:
+        nc = make_nc_tet(make_cartesian_3d_tet(2, 2, 2))
+        cent = nc.mesh.vertices[nc.mesh.elements].mean(axis=1)
+        nc, _ = refine_tets_nc(nc, np.linalg.norm(cent, axis=1) < 0.6)
+    xg, ig = _nc_solve(NCFESpace(nc, 2, device=cuda), cuda)
+    xc, ic = _nc_solve(NCFESpace(nc, 2, device="cpu"), "cpu")
+    assert abs(ig - ic) <= 2
+    assert np.abs(xg - xc).max() <= 1e-10 * np.abs(xc).max()
+
+
+def _pnc_rank(rank, world, dev, nc):
+    from cardiac_ablation_ecm2_tpu_torch.fem.ncfespace import NCFESpace
+    from cardiac_ablation_ecm2_tpu_torch.parallel import pnc
+
+    u, its, _ = pnc.setup(NCFESpace(nc, 2, device=dev), rel_tol=1e-10,
+                          dtype="float64", device=dev).solve()
+    return u, its
+
+
+def test_pnc_world1_nccl_equals_gloo(cuda):
+    """parallel/pnc at world size 1: NCCL on the card against gloo on the
+    CPU, counts within 2, u within 1e-10·max|u|."""
+    from cardiac_ablation_ecm2_tpu_torch.parallel import launch
+
+    nc = _nc_hex(6)
+    ug, ig = launch.run_single(lambda r, w, d: _pnc_rank(r, w, d, nc))
+    uc, ic = launch.run_single(lambda r, w, d: _pnc_rank(r, w, d, nc), "cpu")
+    assert abs(ig - ic) <= 2
     assert np.abs(ug - uc).max() <= 1e-10 * np.abs(uc).max()

@@ -27,6 +27,18 @@ from cardiac_ablation_ecm2_tpu_torch.ops import face_sum
 from cardiac_ablation_ecm2_tpu_torch.ops.dg_advection import DGAdvection, project_l2
 from cardiac_ablation_ecm2_tpu_torch.ops.dg_diffusion import DGDiffusion, DGDiffusionBR2
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: these sizes gain nothing from more, and a
+    parallel test run shares the cores between its workers; restored
+    after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = dict(device="cpu")
 MESHES = {
     "quad": (lambda m: m.make_cartesian_2d(5, 4), 2),

@@ -23,6 +23,18 @@ from cardiac_ablation_ecm2_tpu_torch.mesh import mesh as tmesh
 from cardiac_ablation_ecm2_tpu_torch.ops.dg_elasticity import DGElasticity
 from cardiac_ablation_ecm2_tpu_torch.ops.hyperbolic import HyperbolicDG
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: these sizes gain nothing from more, and a
+    parallel test run shares the cores between its workers; restored
+    after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = dict(device="cpu")
 
 

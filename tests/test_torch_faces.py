@@ -10,6 +10,7 @@ arrays, so the tables agree to a few ulps (1.7e-15 at most, measured).
 
 import numpy as np
 import pytest
+import torch
 
 from cardiac_ablation_ecm2_tpu_torch.fem import faces as tfaces
 from cardiac_ablation_ecm2_tpu_torch.fem import fespace as tfespace
@@ -17,6 +18,18 @@ from cardiac_ablation_ecm2_tpu_torch.fem.basis import l2_nodes_1d, make_dof_to_q
 from cardiac_ablation_ecm2_tpu_torch.fem.geometry import Geometry
 from cardiac_ablation_ecm2_tpu_torch.mesh import cardiac as tcardiac
 from cardiac_ablation_ecm2_tpu_torch.mesh import mesh as tmesh
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: these sizes gain nothing from more, and a
+    parallel test run shares the cores between its workers; restored
+    after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 MESHES = {
     "quad": (lambda m, c: m.make_cartesian_2d(4, 3), 2),

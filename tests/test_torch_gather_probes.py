@@ -14,6 +14,18 @@ from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
 from cardiac_ablation_ecm2_tpu_torch.ops import gather_probes as gp
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: these sizes gain nothing from more, and a
+    parallel test run shares the cores between its workers; restored
+    after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _same(out: torch.Tensor, ref: np.ndarray):
     out = out.numpy()
     assert out.dtype == ref.dtype and out.shape == ref.shape

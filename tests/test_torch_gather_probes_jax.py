@@ -19,6 +19,18 @@ from jax.experimental.pallas import tpu as pltpu
 
 from cardiac_ablation_ecm2_tpu_torch.ops import gather_probes as gp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: these sizes gain nothing from more, and a
+    parallel test run shares the cores between its workers; restored
+    after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _JNP = {np.float32: jnp.float32, np.float64: jnp.float64}
 
 

@@ -21,6 +21,18 @@ from cardiac_ablation_ecm2_tpu_torch.linalg import solvers as tsolvers
 from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_2d
 from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: these sizes gain nothing from more, and a
+    parallel test run shares the cores between its workers; restored
+    after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-10
 
 

@@ -6,6 +6,21 @@ import os
 import subprocess
 import sys
 
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: these sizes gain nothing from more, and a
+    parallel test run shares the cores between its workers; restored
+    after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _PROBE = """
 import importlib, pkgutil, sys
 import cardiac_ablation_ecm2_tpu_torch as pkg

@@ -33,6 +33,18 @@ from cardiac_ablation_ecm2_tpu_torch.parallel import bioheat as pbio
 from cardiac_ablation_ecm2_tpu_torch.parallel import cartesian_bioheat as pcb
 from cardiac_ablation_ecm2_tpu_torch.parallel import launch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: these sizes gain nothing from more, and a
+    parallel test run shares the cores between its workers; restored
+    after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 L = 0.04
 MESH_KW = dict(lengths=(L, L, L / 2), electrode_radius=0.004)
 PHYS = dict(rho_c=3.6e6, k=0.54, w_cb=2e4, T_a=37.0)

@@ -24,6 +24,18 @@ from cardiac_ablation_ecm2_tpu_torch.ops.dg_advection import project_l2
 from cardiac_ablation_ecm2_tpu_torch.parallel import dg as pdg
 from cardiac_ablation_ecm2_tpu_torch.parallel import launch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: these sizes gain nothing from more, and a
+    parallel test run shares the cores between its workers; restored
+    after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DT, STEPS = 0.004, 5
 
 

@@ -24,6 +24,18 @@ from cardiac_ablation_ecm2_tpu_torch.mesh import mesh as tmesh
 from cardiac_ablation_ecm2_tpu_torch.parallel import launch, pfespace
 from cardiac_ablation_ecm2_tpu_torch.parallel.refine import refine_uniform
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: these sizes gain nothing from more, and a
+    parallel test run shares the cores between its workers; restored
+    after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 #: (dim, order) of each case
 CASES = ((2, 2), (3, 1))
 WORLDS = (2, 4)

@@ -19,6 +19,18 @@ from cardiac_ablation_ecm2_tpu_torch.ops import bilinearform as tbf
 from test_torch_operators import (MARKER, _one_thread, _spaces, _vel, _x,  # noqa: F401
                                   close, same_apply)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: these sizes gain nothing from more, and a
+    parallel test run shares the cores between its workers; restored
+    after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CASES = [(g, p) for g in ("hex", "tet") for p in (1, 2, 3, 4)]
 
 
