@@ -23,7 +23,8 @@ NO_IO = ("reading mesh files and --vtu output wait for the port's I/O "
 def standard_parser(desc: str) -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=desc)
     ap.add_argument("-m", "--mesh", default=None,
-                    help="inline spec: inline-{quad,tri,hex,tet}-N")
+                    help="inline spec: inline-{quad,tri,hex,tet,pyramid,wedge}-N "
+                         "(inline-wedge lists only the four quad side walls)")
     ap.add_argument("-o", "--order", type=int, default=2)
     ap.add_argument("-r", "--refine", type=int, default=0,
                     help="uniform refinement levels")
@@ -42,12 +43,14 @@ def setup(args) -> dict:
 
 
 def make_inline(spec: str):
-    """The mesh of an ``inline-{quad,tri,hex,tet}[-N]`` spec (N = 8 when
-    left out)."""
+    """The mesh of an ``inline-{quad,tri,hex,tet,pyramid,wedge}[-N]`` spec
+    (N = 8 when left out)."""
     from ..mesh.mesh import (
         make_cartesian_2d,
         make_cartesian_2d_tri,
         make_cartesian_3d,
+        make_cartesian_3d_prism,
+        make_cartesian_3d_pyramid,
         make_cartesian_3d_tet,
     )
 
@@ -59,11 +62,11 @@ def make_inline(spec: str):
         "tri": lambda: make_cartesian_2d_tri(n, n),
         "hex": lambda: make_cartesian_3d(n, n, n),
         "tet": lambda: make_cartesian_3d_tet(n, n, n),
+        "pyramid": lambda: make_cartesian_3d_pyramid(n, n, n),
+        "wedge": lambda: make_cartesian_3d_prism(n, n, n),
     }
     if kind not in makers:
-        raise NotImplementedError(
-            f"inline-{kind}: the prism and pyramid makers wait for ROADMAP "
-            f"Queue 1 item 6")
+        raise SystemExit(f"unknown inline mesh kind {kind!r}: {sorted(makers)}")
     return makers[kind]()
 
 

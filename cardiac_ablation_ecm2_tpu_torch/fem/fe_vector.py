@@ -13,9 +13,8 @@ by the per-(element, local dof) ``signs`` (lowest order reduces every
   face's canonical frame.
 
 The pullbacks (covariant for ND, Piola for RT) are applied in
-``ops/vecfe.py``.  The prism and pyramid bases wait for the port's
-``basis.prism_rule`` / ``pyramid_rule`` (ROADMAP Queue 1 item 6) and
-raise ``NotImplementedError``.
+``ops/vecfe.py``.  The prism and pyramid bases are not ported yet
+(ROADMAP Queue 1 item 3) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,8 +39,8 @@ def require_vector_geom(geom: Geometry):
     """Raise for a geometry whose vector bases the port lacks."""
     if geom not in VECTOR_GEOMS:
         raise NotImplementedError(
-            f"{geom!r}: the prism and pyramid vector bases need "
-            "basis.prism_rule / pyramid_rule (ROADMAP Queue 1 item 6)")
+            f"{geom!r}: the prism and pyramid vector bases are not ported "
+            "(ROADMAP Queue 1 item 3, which was item 6)")
 
 
 # ----------------------------------------------------------------------------

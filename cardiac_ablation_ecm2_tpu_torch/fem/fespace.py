@@ -1,8 +1,8 @@
-"""H1 finite element space: global dof enumeration on a quad, triangle, hex
-or tet mesh
+"""H1 finite element space: global dof enumeration on a quad, triangle, hex,
+tet, prism or pyramid mesh
 (numpy copy of ``FESpace``, ``element_node_coords`` and ``essential_dofs``
-from ``cardiac_ablation_ecm2_tpu/fem/fespace.py``, tensor and simplex
-geometries, scalar or with ``vdim`` components ordered byNODES).
+from ``cardiac_ablation_ecm2_tpu/fem/fespace.py``, scalar or with ``vdim``
+components ordered byNODES).
 
 Every local node of every element gets an integer entity key that is
 identical for coincident nodes of neighbouring elements; hash-uniquing the
@@ -18,7 +18,10 @@ gather map in one pass:
   corners next to it (triangles)
 * interior node→ ``(CELL, element, i, j, k)``
 
-Local dof ordering is lexicographic (i fastest), see ``fem/basis.py``.
+Local dof ordering is lexicographic (i fastest), see ``fem/basis.py``;
+the pyramid of order ≥ 2 has no lattice, and its keys follow its node
+tables (``fem/pyramid2.py``, ``pyramid3.py``, ``pyramid_p.py``) with the
+same edge and face codes, so mixed meshes share dofs across blocks.
 """
 
 from __future__ import annotations
@@ -109,6 +112,12 @@ def _elem_node_keys(geom: Geometry, p: int, elem_verts: np.ndarray,
                     elem_ids: np.ndarray) -> np.ndarray:
     """Entity keys for all local nodes of a batch of elements:
     (ne, nd, _KEYLEN) int64."""
+    if geom == Geometry.PYRAMID and p == 2:
+        return _pyramid_p2_keys(elem_verts)
+    if geom == Geometry.PYRAMID and p == 3:
+        return _pyramid_p3_keys(elem_verts, elem_ids)
+    if geom == Geometry.PYRAMID and p >= 4:
+        return _pyramid_p_keys(elem_verts, elem_ids, p)
     dim = DIMENSION[geom]
     nd = len(lattice_multi_index(geom, p))
     ne = elem_verts.shape[0]
@@ -182,6 +191,151 @@ def _elem_node_keys(geom: Geometry, p: int, elem_verts: np.ndarray,
         keys[n, :, 4] = _meta(_CELL, *mi3)
 
     return np.ascontiguousarray(keys.transpose(1, 0, 2))
+
+
+def _pyramid_p2_keys(elem_verts: np.ndarray) -> np.ndarray:
+    """Entity keys for the 14-node order-2 pyramid (fem/pyramid2.py node
+    order: 5 vertices, 8 edge midpoints, base-face center) — identical key
+    conventions to the generic tensor/simplex path, so mixed meshes share
+    dofs across hex/tet/pyramid blocks."""
+    ne = elem_verts.shape[0]
+    keys = np.empty((ne, 14, _KEYLEN), dtype=np.int64)
+    keys[..., :4] = -1
+    for lv in range(5):
+        keys[:, lv, 0] = elem_verts[:, lv]
+        keys[:, lv, 4] = _meta(_VERT)
+    for k, (la, lb) in enumerate(EDGES[Geometry.PYRAMID]):
+        ga, gb = elem_verts[:, la], elem_verts[:, lb]
+        keys[:, 5 + k, 0] = np.minimum(ga, gb)
+        keys[:, 5 + k, 1] = np.maximum(ga, gb)
+        keys[:, 5 + k, 4] = _meta(_EDGE, 1)   # p=2 midpoint: frame-free
+    base = FACES[Geometry.PYRAMID][0]
+    gf = elem_verts[:, list(base)]
+    keys[:, 13, 0:4] = np.sort(gf, axis=1)
+    keys[:, 13, 4] = _meta(_FACE, 1, 1)       # quad center: frame-free
+    return keys
+
+
+def _pyramid_p3_keys(elem_verts: np.ndarray,
+                     elem_ids: np.ndarray) -> np.ndarray:
+    """Entity keys for the 30-node order-3 pyramid (fem/pyramid3.py node
+    order: 5 vertices, 8 edges × 2 GLL nodes, 4 tri-face centroids, 4 quad-
+    base GLL² nodes, 1 cell node) — same canonical edge/face code
+    conventions as the generic lattice path, so mixed meshes share
+    oriented dofs across hex/tet/pyramid blocks."""
+    p = 3
+    ne = elem_verts.shape[0]
+    keys = np.empty((ne, 30, _KEYLEN), dtype=np.int64)
+    keys[..., :4] = -1
+    for lv in range(5):
+        keys[:, lv, 0] = elem_verts[:, lv]
+        keys[:, lv, 4] = _meta(_VERT)
+    for k, (la, lb) in enumerate(EDGES[Geometry.PYRAMID]):
+        ga, gb = elem_verts[:, la], elem_verts[:, lb]
+        lo, hi = np.minimum(ga, gb), np.maximum(ga, gb)
+        flip = ga > gb
+        for t in (1, 2):                       # node at GLL t counted from la
+            n = 5 + 2 * k + (t - 1)
+            keys[:, n, 0] = lo
+            keys[:, n, 1] = hi
+            keys[:, n, 4] = _meta_arr(_EDGE, np.where(flip, p - t, t))
+    for i, f in enumerate(FACES[Geometry.PYRAMID][1:]):
+        n = 21 + i                             # centroid (1,1,1): frame-free
+        keys[:, n, 0:3] = np.sort(elem_verts[:, list(f)], axis=1)
+        keys[:, n, 4] = _meta(_FACE, 1, 1)
+    fverts = FACES[Geometry.PYRAMID][0]
+    gf = elem_verts[:, list(fverts)]
+    gsort = np.sort(gf, axis=1)
+    r = np.argmin(gf, axis=1)
+    nxt = gf[np.arange(ne), (r + 1) % 4]
+    prv = gf[np.arange(ne), (r - 1) % 4]
+    d = np.where(nxt < prv, 1, -1)
+    corner_uv = np.array([[0, 0], [p, 0], [p, p], [0, p]])
+    cr = corner_uv[r]
+    eu = (corner_uv[(r + d) % 4] - cr) // p
+    ev = (corner_uv[(r - d) % 4] - cr) // p
+    for v in (1, 2):                           # node order (1,1),(2,1),(1,2),(2,2)
+        for u in (1, 2):
+            n = 25 + (v - 1) * 2 + (u - 1)
+            rel = np.array([u, v]) - cr
+            a = (rel * eu).sum(axis=1)
+            b = (rel * ev).sum(axis=1)
+            keys[:, n, 0:4] = gsort
+            keys[:, n, 4] = _meta_arr(_FACE, a, b)
+    keys[:, 29, 0] = elem_ids
+    keys[:, 29, 4] = _meta(_CELL, 1, 1, 1)
+    return keys
+
+
+def _pyramid_p_keys(elem_verts: np.ndarray, elem_ids: np.ndarray,
+                    p: int) -> np.ndarray:
+    """Entity keys for the order-p rational pyramid (fem/pyramid_p.py node
+    order) — identical canonical edge/face code conventions to the generic
+    lattice path, so mixed meshes share oriented dofs across hex/tet/
+    pyramid blocks at any order."""
+    from .pyramid_p import pyramid_num_dofs
+
+    ne = elem_verts.shape[0]
+    nd = pyramid_num_dofs(p)
+    keys = np.empty((ne, nd, _KEYLEN), dtype=np.int64)
+    keys[..., :4] = -1
+    for lv in range(5):
+        keys[:, lv, 0] = elem_verts[:, lv]
+        keys[:, lv, 4] = _meta(_VERT)
+    n = 5
+    for (la, lb) in EDGES[Geometry.PYRAMID]:
+        ga, gb = elem_verts[:, la], elem_verts[:, lb]
+        lo, hi = np.minimum(ga, gb), np.maximum(ga, gb)
+        flip = ga > gb
+        for t in range(1, p):                  # node at GLL t counted from la
+            keys[:, n, 0] = lo
+            keys[:, n, 1] = hi
+            keys[:, n, 4] = _meta_arr(_EDGE, np.where(flip, p - t, t))
+            n += 1
+    ar = np.arange(ne)
+    for f in FACES[Geometry.PYRAMID][1:]:      # tri faces: barycentric codes
+        gf = elem_verts[:, list(f)]
+        gsort = np.sort(gf, axis=1)
+        r = np.argmin(gf, axis=1)
+        d = np.where(gf[ar, (r + 1) % 3] < gf[ar, (r - 1) % 3], 1, -1)
+        for b0 in range(1, p):
+            for b1 in range(1, p - b0):
+                b2 = p - b0 - b1
+                if b2 < 1:
+                    continue
+                bar = np.stack([np.full(ne, b0), np.full(ne, b1),
+                                np.full(ne, b2)], axis=1)
+                a = bar[ar, (r + d) % 3]
+                bb = bar[ar, (r - d) % 3]
+                keys[:, n, 0:3] = gsort
+                keys[:, n, 4] = _meta_arr(_FACE, a, bb)
+                n += 1
+    fverts = FACES[Geometry.PYRAMID][0]        # quad base: (u, v) codes
+    gf = elem_verts[:, list(fverts)]
+    gsort = np.sort(gf, axis=1)
+    r = np.argmin(gf, axis=1)
+    d = np.where(gf[ar, (r + 1) % 4] < gf[ar, (r - 1) % 4], 1, -1)
+    corner_uv = np.array([[0, 0], [p, 0], [p, p], [0, p]])
+    cr = corner_uv[r]
+    eu = (corner_uv[(r + d) % 4] - cr) // p
+    ev = (corner_uv[(r - d) % 4] - cr) // p
+    for u in range(1, p):
+        for v in range(1, p):
+            rel = np.array([u, v]) - cr
+            a = (rel * eu).sum(axis=1)
+            b = (rel * ev).sum(axis=1)
+            keys[:, n, 0:4] = gsort
+            keys[:, n, 4] = _meta_arr(_FACE, a, b)
+            n += 1
+    for ell in range(1, p - 1):                # interior: level/grid indices
+        m = p - 1 - ell
+        for j in range(m):
+            for i in range(m):
+                keys[:, n, 0] = elem_ids
+                keys[:, n, 4] = _meta(_CELL, ell, i, j)
+                n += 1
+    assert n == nd
+    return keys
 
 
 def _bdr_cell_to_face_keys(bgeom: Geometry, p: int, bverts: np.ndarray,
@@ -297,8 +451,9 @@ def element_node_coords(mesh: Mesh, p: int) -> np.ndarray:
     """Physical coordinates of the order-p lattice nodes of every element,
     (ne, nd, sdim): the curved ``mesh.nodes`` (evaluated at the order-p
     lattice when their order differs), else the P1 (simplex) or
-    multilinear Q1 vertex map.  Not memoised: every call reads the mesh's
-    current arrays."""
+    multilinear Q1 vertex map (the wedge's barycentric times linear z map,
+    the pyramid's rational vertex map).  Not memoised: every call reads the
+    mesh's current arrays."""
     ref = h1_nodes(mesh.geom, p)                      # (nd, dim)
     if mesh.nodes is not None:
         if mesh.nodes_order == p:
@@ -308,6 +463,19 @@ def element_node_coords(mesh: Mesh, p: int) -> np.ndarray:
         return _batched_eval(B, mesh.nodes)
     if mesh.geom in (Geometry.TRIANGLE, Geometry.TETRAHEDRON):
         B, _ = simplex_basis_matrices(mesh.geom, 1, ref)   # (nd, nv)
+    elif mesh.geom == Geometry.PRISM:
+        lam = np.stack([1 - ref[:, 0] - ref[:, 1], ref[:, 0], ref[:, 1]], axis=1)
+        z = ref[:, 2][:, None]
+        B = np.concatenate([lam * (1 - z), lam * z], axis=1)   # (nd, 6)
+    elif mesh.geom == Geometry.PYRAMID and p >= 2:
+        from .basis import pyramid_basis_matrices
+        from .pyramid2 import _nudge_apex
+
+        B = pyramid_basis_matrices(1, _nudge_apex(ref))[0]
+    elif mesh.geom == Geometry.PYRAMID:
+        # order 1: the nodes are the vertices (the rational map divides by
+        # zero at the apex; the identity is exact)
+        B = np.eye(NUM_VERTS[mesh.geom])
     else:
         B = _q1_eval_matrix(mesh.geom, ref)
     return _batched_eval(B, mesh.vertices[mesh.elements])

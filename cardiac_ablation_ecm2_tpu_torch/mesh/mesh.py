@@ -1,5 +1,5 @@
 """Unstructured mesh as element-batched index arrays (numpy copy of ``Mesh``,
-the Cartesian makers, ``curve_mesh``, the entity tables and uniform
+the Cartesian makers (hex, tet, prism, pyramid), ``curve_mesh``, the entity tables and uniform
 refinement from ``cardiac_ablation_ecm2_tpu/mesh/mesh.py``; MFEM's
 ``MakeCartesian2D/3D``, ``SetCurvature`` and ``UniformRefinement``).
 
@@ -303,6 +303,55 @@ def make_cartesian_3d_tet(
     )
 
 
+def make_cartesian_3d_prism(
+    nx: int, ny: int, nz: int, sx: float = 1.0, sy: float = 1.0, sz: float = 1.0
+) -> Mesh:
+    """Wedge (prism) grid: each hex split into 2 wedges by the v0–v2 bottom
+    diagonal (the same in every column, so interior faces match).  The
+    boundary lists the four side walls (quads); the z = 0 and z = 1 faces
+    would be triangles and are left unlisted (natural), as the JAX
+    package's maker leaves them.  Its per-quad ``np.allclose`` test of the
+    z coordinates runs over whole arrays here."""
+    h = make_cartesian_3d(nx, ny, nz, sx, sy, sz)
+    e = h.elements
+    wedges = np.concatenate([e[:, [0, 1, 2, 4, 5, 6]], e[:, [0, 2, 3, 4, 6, 7]]],
+                            axis=0)
+    z = h.vertices[h.boundary, 2]
+    flat = np.all(np.abs(z - z[:, :1]) <= 1e-8 + 1e-5 * np.abs(z[:, :1]), axis=1)
+    return Mesh(
+        geom=Geometry.PRISM,
+        vertices=h.vertices,
+        elements=wedges,
+        attributes=np.tile(h.attributes, 2),
+        boundary=h.boundary[~flat].reshape(-1, 4),
+        bdr_attributes=h.bdr_attributes[~flat],
+    )
+
+
+def make_cartesian_3d_pyramid(
+    nx: int, ny: int, nz: int, sx: float = 1.0, sy: float = 1.0, sz: float = 1.0
+) -> Mesh:
+    """Pyramid grid: each hex split into 6 pyramids with the apex at its
+    centre, one on each face (face-major within a hex, as the JAX
+    package's loop); every boundary face stays a quad, a pyramid's base."""
+    h = make_cartesian_3d(nx, ny, nz, sx, sy, sz)
+    centers = h.vertices[h.elements].mean(axis=1)         # (ne, 3)
+    apex = h.nv + np.arange(h.ne, dtype=np.int64)
+    # FACES lists are outward-cyclic; seen from the apex (inside) that is
+    # clockwise, so the base is reversed for a positive pyramid
+    pyrs = np.stack([np.concatenate([h.elements[:, list(reversed(f))],
+                                     apex[:, None]], axis=1)
+                     for f in FACES[Geometry.CUBE]], axis=1).reshape(-1, 5)
+    return Mesh(
+        geom=Geometry.PYRAMID,
+        vertices=np.concatenate([h.vertices, centers], axis=0),
+        elements=pyrs,
+        attributes=np.repeat(h.attributes, len(FACES[Geometry.CUBE])),
+        boundary=h.boundary,
+        bdr_attributes=h.bdr_attributes,
+    )
+
+
 def curve_mesh(mesh: Mesh, mapping, order: int) -> Mesh:
     """Isoparametric curved mesh (MFEM's ``SetCurvature`` then
     ``Transform``): ``mapping(x) -> x'`` on (..., sdim) numpy arrays,
@@ -341,14 +390,19 @@ def unique_edges(mesh: Mesh) -> Tuple[np.ndarray, np.ndarray]:
 
 def unique_faces(mesh: Mesh) -> Tuple[np.ndarray, np.ndarray]:
     """Unique faces of a 3D mesh: (faces (nface, fv) sorted vertex tuples
-    in lexicographic order, elem_face (ne, n_loc_faces))."""
-    loc_list = FACES[mesh.geom]
-    if len({len(f) for f in loc_list}) != 1:
-        raise NotImplementedError(f"mixed face arities of {mesh.geom!r}")
+    in lexicographic order, elem_face (ne, n_loc_faces)).  Mixed arities
+    (the wedge's and the pyramid's triangles and quads) are left-padded
+    with −1 to the widest face, so they share one table without
+    colliding."""
     from ..utils.native import encode_rows
 
-    keys = np.stack([np.sort(mesh.elements[:, list(f)], axis=1)
-                     for f in loc_list], axis=1)
+    loc_list = FACES[mesh.geom]
+    w = max(len(f) for f in loc_list)
+    ne = mesh.ne
+    keys = np.stack([np.concatenate(
+        [np.full((ne, w - len(f)), -1, dtype=np.int64),
+         np.sort(mesh.elements[:, list(f)], axis=1)], axis=1)
+        for f in loc_list], axis=1)
     flat = keys.reshape(-1, keys.shape[-1])
     # np.unique(flat, axis=0)'s result: hash-unique the rows, then order the
     # unique rows lexicographically

@@ -14,7 +14,10 @@ are byNODES, one E→L sum per component.  Every function runs on
 (or a ``torch.Generator`` to draw them): the JAX package draws them from
 ``jax.random``, which no torch generator reproduces.
 
-Not ported yet: ``delta_lf`` (it waits for ``mesh/point_eval.py``).
+``delta_lf`` (point sources) is host work, as in the JAX package: the
+points are located on the host (``mesh/point_eval.py``) and summed with
+``np.add.at`` in float64 in the JAX package's order, then cast, so ``b``
+is bitwise the JAX package's.
 """
 
 from __future__ import annotations
@@ -262,3 +265,23 @@ def white_noise_lf(fes, w: Optional[torch.Tensor] = None, num: Optional[int] = N
     b = torch.stack([r.mult_transpose(b_e[..., s].contiguous())
                      for s in range(b_e.shape[-1])])             # (k, ndof)
     return b[0] if num is None else b
+
+
+def delta_lf(fes, points, strengths=None, dtype=None, device=None) -> torch.Tensor:
+    """Point (Dirac delta) sources: b_i = Σ_k s_k φ_i(x_k)
+    (DeltaCoefficient's right-hand side, ex34's delta loads).  Points
+    outside the mesh add nothing."""
+    from ..fem.faces import _eval_volume_basis
+    from ..mesh.point_eval import locate_points
+
+    pts = np.atleast_2d(np.asarray(points, dtype=np.float64))
+    s = (np.ones(len(pts)) if strengths is None
+         else np.broadcast_to(np.asarray(strengths, np.float64), (len(pts),)))
+    elem, ref = locate_points(fes.mesh, pts)
+    b = np.zeros(fes.ndof_scalar)
+    found = elem >= 0
+    if found.any():
+        B = _eval_volume_basis(fes.mesh.geom, fes.order, ref[found])
+        np.add.at(b, fes.gather_map[elem[found]].reshape(-1),
+                  (B * s[found, None]).reshape(-1))
+    return torch.as_tensor(b, dtype=real_t(dtype), device=resolve_device(device))

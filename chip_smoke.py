@@ -3,7 +3,11 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the exit code is non-zero:
+Phases, in this order but for [3] and [8]-[12a], which run before [2] and
+[4] while the n=126 mesh and space build in a worker process (the host
+set-up of [7], [14], [25], [38] and [45]-[46] builds in worker processes
+from the start too, one thread each); any failure raises and the exit code
+is non-zero:
 
 0. Device: a CUDA device must be visible; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
@@ -443,6 +447,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
    master map bitwise; the NC tet order-2 case and the ``AMRForest`` ex15
    loop at the JAX tests' sizes against the CPU; the ex15 and
    boundary-layer drivers at their defaults on the card as subprocesses.
+45. The multi-domain slice's main path, the multidomain heat driver's
+   composition at full width: the unit cube of 96³ order-2 hexes
+   (7,189,057 dofs), the catheter column (attribute 2; 1,815,937 dofs)
+   and the tissue (5,447,232 dofs) as submeshes, three coupled
+   backward-Euler steps in float64 (the driver's CG rel_tol is 1e-10) at
+   the driver's quad_extra 1.  The host tables (mesh, both extractions,
+   the three spaces, the transfer maps) are built in a worker process
+   from the start of the script.  Prints the host seconds of each part,
+   the device set-up, each step's CG counts, maxima and seconds (CUDA
+   events) and the peak; holds the catheter to its uniform solution
+   37 + 4(k + 1), the launches to the mass and diffusion applies the CG
+   counts imply (each a ``gather_transpose`` and a ``segment_sum``) plus
+   two ``take_flat`` gathers a step (``LaunchLedger``), and ``to_sub`` /
+   ``to_parent`` at the tissue's shape bitwise their plain versions
+   (``take_flat`` timed).
+46. The rest of the multi-domain slice, card against CPU: the driver at
+   n = 12 for three steps in float64 (its lines equal but for CG counts within 1, the
+   fields within 1e-10), trim, ``ParticleSet.advect`` and ``delta_lf`` at
+   the JAX tests' sizes, ``psubmesh`` and ``pointeval`` at world 1 over
+   NCCL against the serial transfer (bitwise) and point values (1e-13),
+   order-2 Poisson on ≥ 200k prisms and pyramids (float64 Jacobi-PCG,
+   timed; small meshes card against CPU), pyramid orders 2–4 and the
+   mixed hex/pyramid/tet cube (its blocks' restrictions bitwise).
 
 Last, ``dryrun_multichip(torch.cuda.device_count())``: one spawned rank a
 card over NCCL, the sharded bioheat step and the JAX dryrun's parts (a) a
@@ -495,11 +522,18 @@ Every restriction entry carries ``nc_launches`` ([43]'s solve) and
 ``pnc_launches``; the ``gather_sum`` and
 ``segment_sum`` entries ``nc_map_*`` fields, their float32 numbers on
 [43]'s (n_slaves, width) master map, and ``nc_p_*`` / ``nc_pt_*``, P's
-and Pᵀ's times whole against their plain versions.
+and Pᵀ's times whole against their plain versions.  Every restriction
+entry and the ``fused_diffusion`` entry carry ``md_launches`` ([45]'s
+three steps) and ``md_rest_launches`` ([46]'s card runs); the
+``gather_sum`` entry ``md_take_flat_*``, [45]'s tissue ``to_sub``
+(``take_flat``, one ``gather_sum`` launch: 7,189,057 → 5,447,232,
+float64) against its plain version and ``index_select``, with its
+launches on [45]'s path, and ``md_rest_take_flat_launches``.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import multiprocessing
 import os
@@ -1970,24 +2004,19 @@ def phase_poisson(kc, dev, mesh, fes):
     return total, (fes, u_ref, residual, its)
 
 
-def phase_heat(kc, dev, n=100):
+def phase_heat(kc, dev, n=100, built=None):
     """[14] ex16 nonlinear heat: the n³ unit cube (80³, cut from 100³),
     order 2, float32, SDIRK33; after its launches are read, the
     restriction's kernels and the fused diffusion apply on the last
-    state's κ(u) qdata are held to their plain versions.  Returns the
-    launch counts of its run."""
+    state's κ(u) qdata are held to their plain versions.  ``built``: the
+    host set-up from ``ex16_host`` (else built here).  Returns the launch
+    counts of its run."""
     from cardiac_ablation_ecm2_tpu_torch.fem import gridfunction as gf
-    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
     from cardiac_ablation_ecm2_tpu_torch.linalg import ode
-    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_3d
     from cardiac_ablation_ecm2_tpu_torch.models import heat
     from cardiac_ablation_ecm2_tpu_torch.ops import diffusion
 
-    t0 = time.perf_counter()
-    mesh = make_cartesian_3d(n, n, n)
-    t1 = time.perf_counter()
-    fes = FESpace(mesh, 2)
-    t2 = time.perf_counter()
+    mesh, fes, mesh_s, fes_s = built if built is not None else ex16_host()
     check((mesh.ne, fes.ndof) == (n ** 3, (2 * n + 1) ** 3), "[14] mesh size")
     start_main_path()
     t3 = time.perf_counter()
@@ -2019,7 +2048,7 @@ def phase_heat(kc, dev, n=100):
     print(f"[14] ex16 heat, {n}^3 unit cube order 2 f32: {mesh.ne} hexes, "
           f"{fes.ndof} dofs; kappa 0.5 + 0.01 u, dt {EX16_DT}, SDIRK33, rel_tol "
           f"{EX16['rel_tol']}")
-    print(f"[14] host setup: mesh {t1 - t0:.2f} s, FESpace {t2 - t1:.2f} s; "
+    print(f"[14] host setup: mesh {mesh_s:.2f} s, FESpace {fes_s:.2f} s; "
           f"operator {setup_s:.2f} s")
     print(f"[14] s/step {s_step:.6f} (CUDA events, 2 steps after 1 warm-up: "
           + ", ".join(f"{m / 1e3:.6f}" for m in ms) + f"); stage CG "
@@ -2868,32 +2897,21 @@ def pcg(A, b, M, dev, **kw):
     return x, info.iterations, info.converged, elapsed(t0, dev)
 
 
-def phase_hmg(kc, dev):
+def phase_hmg(kc, dev, built=None):
     """[25] −Δu = 1, u = 0 on the boundary, on the cardiac hex mesh n=32
     refined twice (16,305 → 130,440 → 1,043,520 hexes), order 2, float32:
     h-multigrid PCG with make_h_multigrid's smoothers (20 power steps,
     printed and flagged where it falls short), then with the levels
     rebuilt at 60 steps (held), and Jacobi-PCG; after each run's launches
     are read, every level's restriction bitwise, the fine one timed.
+    ``built``: the host set-up from ``hmg_host`` (else built here).
     Returns the default run's launches, the spaces and the fine transfer
     for [27], and the fine restriction's round trip."""
     from cardiac_ablation_ecm2_tpu_torch.fem.build import restriction_for
-    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
     from cardiac_ablation_ecm2_tpu_torch.linalg.smoothers import jacobi
-    from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
 
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    meshes = [make_cardiac_hex_mesh(32, lengths=(L, L, L / 2),
-                                    electrode_radius=0.004)]
-    for _ in range(2):
-        meshes.append(meshes[-1].uniform_refinement())
-    mesh_s = time.perf_counter() - t0
-    spaces, space_s = [], []
-    for m in meshes:
-        t0 = time.perf_counter()
-        spaces.append(FESpace(m, 2))
-        space_s.append(time.perf_counter() - t0)
+    meshes, spaces, mesh_s, space_s = built if built is not None else hmg_host()
     fes = spaces[-1]
     check(tuple(m.ne for m in meshes) == (16_305, 130_440, 1_043_520),
           "[25] the refined hierarchy's sizes")
@@ -4728,10 +4746,12 @@ class LaunchLedger:
                 + " = the counts read after the solve")
 
 
-def ex3_ams(meshes, dev, dtype, rel_tol, jacobi_cap, ledger=None):
+def ex3_ams(meshes, dev, dtype, rel_tol, jacobi_cap, ledger=None, spaces=None):
     """ex3's --ams problem on meshes[-1]: Jacobi-PCG and AMS-PCG.  Returns
     the x's, counts, seconds, setup split, launches and the objects; with
-    a ``LaunchLedger`` the AMS solve's launches are accounted for."""
+    a ``LaunchLedger`` the AMS solve's launches are accounted for;
+    ``spaces``: the fine level's (ND₁, H1) spaces with their host seconds,
+    if built already."""
     from cardiac_ablation_ecm2_tpu_torch.examples.ex3_maxwell import ams_rhs
     from cardiac_ablation_ecm2_tpu_torch.fem.fe_vector import NDSpace
     from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
@@ -4740,10 +4760,11 @@ def ex3_ams(meshes, dev, dtype, rel_tol, jacobi_cap, ledger=None):
     from cardiac_ablation_ecm2_tpu_torch.utils.config import elapsed
 
     out = {}
-    t0 = time.perf_counter()
     mesh = meshes[-1]
-    nd, h1 = NDSpace(mesh), FESpace(mesh, 1)
-    out["host_s"] = time.perf_counter() - t0
+    if spaces is None:
+        t0 = time.perf_counter()
+        spaces = (NDSpace(mesh), FESpace(mesh, 1)), time.perf_counter() - t0
+    (nd, h1), out["host_s"] = spaces
     from cardiac_ablation_ecm2_tpu_torch.examples.ex3_maxwell import masked_system
     from cardiac_ablation_ecm2_tpu_torch.ops.vecfe import build_nd_operator, vecfe_linear_form
 
@@ -4852,14 +4873,14 @@ def ex3_driver_lines(proc, what):
     return out.strip().splitlines()
 
 
-def phase_ex3(kc, dev):
+def phase_ex3(kc, dev, built=None):
     """[38] ex3 with AMS on the 2³ → 128³ hierarchy; returns the launches of
     the AMS and Jacobi solves and the kernels line's ND-map numbers.  The
     ex3 driver's runs go on beside the phase's own work (the CPU one from the
     start, the card one after the solves) and are stopped if it fails."""
     drivers = [start_ex3_driver("--cpu", threads=EX3_DRIVER_CPU_THREADS)]
     try:
-        return ex3_checks(kc, dev, drivers)
+        return ex3_checks(kc, dev, drivers, built)
     finally:
         for p in drivers:
             if p.poll() is None:
@@ -4867,20 +4888,18 @@ def phase_ex3(kc, dev):
                 p.wait()
 
 
-def ex3_checks(kc, dev, drivers):
+def ex3_checks(kc, dev, drivers, built=None):
     """[38]'s body; ``drivers`` holds the ex3 driver's CPU run and gets its card
-    run."""
-    from cardiac_ablation_ecm2_tpu_torch.examples.ex3_maxwell import hierarchy
+    run; ``built``: the host set-up from ``ex3_host`` (else built here)."""
     from cardiac_ablation_ecm2_tpu_torch.fem.build import restriction_for
     from cardiac_ablation_ecm2_tpu_torch.fem.fe_vector import NDSpace
 
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    meshes = hierarchy(EX3_N)
-    mesh_s = time.perf_counter() - t0
+    meshes, spaces, mesh_s, space_s = built if built is not None else ex3_host()
     torch.cuda.reset_peak_memory_stats()
     ledger = LaunchLedger()
-    r = ex3_ams(meshes, dev, torch.float32, EX3_REL_TOL, EX3_JACOBI_CAP, ledger)
+    r = ex3_ams(meshes, dev, torch.float32, EX3_REL_TOL, EX3_JACOBI_CAP, ledger,
+                spaces=(spaces, space_s))
     t_card = time.perf_counter()
     drivers.append(start_ex3_driver())
     nd, h1, op = r["nd"], r["h1"], r["op"]
@@ -5799,6 +5818,408 @@ def phase_nc_rest(kc, dev, sp, A_L, small):
     return par_launches
 
 
+# ----------------------------------------------------------------------------
+# [45]-[46]: the multi-domain and mixed-geometry slice.  [45] is the
+# multidomain heat driver's composition at full width: the unit cube of
+# MD_N³ order-2 hexes, the catheter column (attribute 2) and the tissue
+# (attribute 1) extracted as submeshes, each step a backward-Euler catheter
+# solve with a source, its field onto the parent (TransferMap), the tissue
+# solve with the catheter's interface values, and back; float64, since the
+# driver's CG rel_tol is 1e-10.  The host tables (mesh, both extractions,
+# the three spaces, the transfer maps) and [46]'s large prism and pyramid
+# spaces are built in a worker process from the start of the script.
+# ----------------------------------------------------------------------------
+
+MD_N = 96
+MD_ORDER = 2
+MD_STEPS = 3
+MD_DT = 0.05
+#: (parent hexes, dofs), (catheter hexes, dofs), (tissue hexes, dofs) at MD_N
+MD_SIZES = ((884_736, 7_189_057), (221_184, 1_815_937), (663_552, 5_447_232))
+#: [46]'s driver run, card against CPU; its CG counts (rel_tol 1e-10)
+#: within MD_COUNT_TOL of the CPU's
+MD_SMALL_N = 12
+MD_SMALL_STEPS = 3
+MD_COUNT_TOL = 1
+#: [46]'s order-2 Poisson solves: ≥ 200k elements (float64: in float32
+#: the Jacobi-PCG's true residual stalls at 5.6e-4 on the prisms), and the
+#: small card-vs-CPU meshes
+PP_MAIN = {"prism": (48, 48, 44), "pyramid": (33, 33, 31)}
+PP_SMALL = {"prism": (4, 4, 3), "pyramid": (3, 3, 3)}
+PP_REL_TOL = 1e-8
+
+
+def md_host():
+    """[45]'s and [46]'s host set-up, run in a worker process from the start
+    of the script (one thread): the driver's ``setup_host(MD_N, 2)`` with the
+    parent's dof coordinates built, and the order-2 spaces of [46]'s large
+    prism and pyramid meshes, each with its host seconds."""
+    from cardiac_ablation_ecm2_tpu_torch.examples.multidomain_heat import setup_host
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.mesh import mesh as tmesh
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    prob = setup_host(MD_N, MD_ORDER)
+    prob.pfes.dof_coords                        # the projection's, cached
+    total = time.perf_counter() - t0
+    spaces = {}
+    for kind, shape in PP_MAIN.items():
+        t = time.perf_counter()
+        mesh = getattr(tmesh, f"make_cartesian_3d_{kind}")(*shape)
+        fes = FESpace(mesh, 2)
+        fes.essential_dofs()
+        spaces[kind] = (fes, time.perf_counter() - t)
+    return prob, total, spaces
+
+
+def md_counted(ledger, run):
+    """Wrap the two subdomains' mass and diffusion applies in ``ledger``."""
+    import types
+
+    for name, hs in (("catheter", run.cath), ("tissue", run.tissue)):
+        hs.M = types.SimpleNamespace(mult=ledger.wrap(f"{name} M", hs.M.mult))
+        hs.A = types.SimpleNamespace(mult=ledger.wrap(f"{name} A", hs.A.mult))
+
+
+def phase_md_main(kc, dev, prob, host_s):
+    """[45] the multidomain heat driver at MD_N: returns (the launches of
+    its MD_STEPS steps, the kernels line's take_flat numbers)."""
+    from cardiac_ablation_ecm2_tpu_torch.examples.multidomain_heat import Coupled
+    from cardiac_ablation_ecm2_tpu_torch.ops import gather_probes as gp
+
+    t_phase = time.perf_counter()
+    sec = prob.seconds
+    print(f"[45] host (worker process, one thread; {host_s:.2f} s in all): "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in sec.items()))
+    sizes = ((prob.pfes.mesh.ne, prob.pfes.ndof_scalar),
+             (prob.cfes.mesh.ne, prob.cfes.ndof_scalar),
+             (prob.tfes.mesh.ne, prob.tfes.ndof_scalar))
+    print(f"[45] parent {sizes[0][0]:,} hexes, {sizes[0][1]:,} dofs; catheter "
+          f"{sizes[1][0]:,} hexes, {sizes[1][1]:,} dofs; tissue {sizes[2][0]:,} "
+          f"hexes, {sizes[2][1]:,} dofs; {len(prob.iface_t):,} interface dofs")
+    check(sizes == MD_SIZES, f"[45] the sizes at n = {MD_N}: {sizes}")
+    t0 = time.perf_counter()
+    run = Coupled(prob, MD_DT, dev, torch.float64)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"[45] device set-up (transfer maps, the four forms, the source's "
+          f"linear form, the projection) {setup_s:.2f} s")
+
+    ledger = LaunchLedger()
+    md_counted(ledger, run)
+    start_main_path()
+    rows = []
+    for k in range(MD_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        Tc, Tt, ic, it = run.step()
+        b.record()
+        torch.cuda.synchronize()
+        s = a.elapsed_time(b) / 1e3
+        want = 37.0 + 80.0 * MD_DT * (k + 1)
+        cmax, cmin, tmax = float(Tc.max()), float(Tc.min()), float(Tt.max())
+        rows.append((ic.iterations, it.iterations, s))
+        print(f"[45] step {k}: catheter {ic.iterations} CG, tissue {it.iterations} "
+              f"CG; catheter max {cmax:.9f} (min {cmin:.9f}), tissue max "
+              f"{tmax:.9f}; {s:.4f} s ({s * 1e3 / (ic.iterations + it.iterations):.4f} "
+              f"ms a CG iteration of either)")
+        check(ic.converged and it.converged, f"[45] step {k}: both solves converged")
+        check(abs(cmax - want) <= 1e-6 * want and abs(cmin - want) <= 1e-6 * want,
+              f"[45] step {k}: the catheter heats uniformly to {want}")
+        check(bool(torch.isfinite(Tt).all()) and abs(tmax - cmax) <= 1e-6 * cmax,
+              f"[45] step {k}: the tissue is finite and takes the interface values")
+    launches = main_path_launches()
+    peak = peak_gib()
+    total = sum(r[2] for r in rows)
+    print(f"[45] {MD_STEPS} steps in {total:.3f} s, {total / MD_STEPS:.4f} s/step "
+          f"(CUDA events); peak {peak:.2f} GiB")
+    c = ledger.calls
+    its = [(r[0], r[1]) for r in rows]
+    check(c["catheter M"] == sum(i + 3 for i, _ in its)
+          and c["catheter A"] == sum(i + 2 for i, _ in its)
+          and c["tissue M"] == sum(i + 3 for _, i in its)
+          and c["tissue A"] == sum(i + 2 for _, i in its) and not ledger.uneven,
+          f"[45] per step and subdomain: CG + 3 mass and CG + 2 diffusion applies, "
+          f"each launching the same kernels ({c})")
+    names = RESTRICTION_KERNELS + ("fused_diffusion",)
+    total_l = [sum(c[n] * ledger.per_call[n][j] for n in c) for j in range(4)]
+    total_l[0] += launches["take_flat"]          # take_flat is one gather_sum
+    print(f"[45] launches " + ", ".join(f"{k} {launches[k]}" for k in names)
+          + f", take_flat {launches['take_flat']}; a mass apply "
+          + str(dict(zip(names, ledger.per_call["tissue M"])))
+          + ", a diffusion apply " + str(dict(zip(names, ledger.per_call["tissue A"]))))
+    check(launches["take_flat"] == 2 * MD_STEPS, "[45] two to_sub gathers a step")
+    check(total_l == [launches[k] for k in names],
+          f"[45] the launches equal the applies times the launches an apply, plus "
+          f"take_flat's gather_sum ({total_l})")
+    check(all(launches[k] > 0 for k in ("gather_sum", "segment_sum", "take_flat")),
+          "[45] the path launched gather_sum, segment_sum and take_flat")
+
+    # the transfer maps at this shape: to_sub (take_flat) bitwise its plain
+    # version and timed, to_parent bitwise plain indexing
+    idx = run.tm_t.idx
+    nbytes = idx.numel() * 4 + 2 * idx.numel() * run.Tp.element_size()
+    kc.compare("gather_sum", f"tissue to_sub: take_flat {prob.pfes.ndof_scalar:,}"
+               f" -> {idx.numel():,} float64", gp.take_flat, gp.take_flat_plain,
+               (run.Tp, idx), least=nbytes, tag="[45]",
+               library=lambda: run.Tp.index_select(0, run.tm_t.idx_long))
+    numbers = kc.times[f"tissue to_sub: take_flat {prob.pfes.ndof_scalar:,} -> "
+                       f"{idx.numel():,} float64"]
+    us = run.tm_t.to_sub(run.Tp) * 0.5
+    want = run.Tp.clone()
+    want[run.tm_t.idx_long] = us
+    check(torch.equal(bits(run.tm_t.to_parent(us, run.Tp)), bits(want)),
+          "[45] to_parent bitwise plain indexing")
+    print(f"[45] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, dict(md_take_flat_ms=numbers["ms"],
+                          md_take_flat_plain_ms=numbers["plain_ms"],
+                          md_take_flat_bound_ms=numbers["bound_ms"],
+                          md_take_flat_library_ms=numbers["library_ms"],
+                          md_take_flat_launches=launches["take_flat"])
+
+
+def _md_driver(argv):
+    """The driver's ``main(argv)``: (its printed lines, Tc, Tt on the CPU)."""
+    import contextlib
+    import io
+
+    from cardiac_ablation_ecm2_tpu_torch.examples import multidomain_heat
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _, Tc, Tt = multidomain_heat.main(argv)
+    return out.getvalue().strip().splitlines(), Tc.cpu(), Tt.cpu()
+
+
+def two_material_3d(n):
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import Mesh, make_cartesian_3d
+
+    m = make_cartesian_3d(n, n, n)
+    cent = m.vertices[m.elements].mean(axis=1)
+    return Mesh(geom=m.geom, vertices=m.vertices, elements=m.elements,
+                attributes=np.where(cent[:, 0] < 0.5, 1, 2), boundary=m.boundary,
+                bdr_attributes=m.bdr_attributes)
+
+
+def _md_rank(rank, world, d):
+    """[46]'s rank body at world 1: the sharded transfers and the sharded
+    point values on ``d``, and the serial ones for comparison."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.fem.gridfunction import project
+    from cardiac_ablation_ecm2_tpu_torch.mesh import submesh
+    from cardiac_ablation_ecm2_tpu_torch.mesh.point_eval import evaluate_at_points
+    from cardiac_ablation_ecm2_tpu_torch.parallel import pfespace, pointeval, psubmesh
+
+    parent = two_material_3d(12)
+    sm = submesh.create_from_domain(parent, [1])
+    pfes, sfes = FESpace(parent, 2), FESpace(sm.mesh, 2)
+    ppf = pfespace.build(pfes, world)
+    spf, pt = psubmesh.build_sub(ppf, sm, sfes)
+    up = project(pfes, lambda x: x[..., 0] ** 2 + 2 * x[..., 1] - x[..., 2],
+                 dtype="float64", device=d)
+    ls = ppf.local(rank, d, "float64")
+    idx, wmask = pt.local(rank, d, "float64")
+    up_loc = torch.as_tensor(pfespace.scatter_global(ppf, up.cpu().numpy())[rank],
+                             device=d)
+    us = psubmesh.transfer_to_sub(idx, up_loc)
+    up2 = psubmesh.transfer_to_parent(idx, us * 2.0, up_loc, wmask, ls.halo)
+    tm = submesh.create_transfer_map(pfes, sfes, sm, d)
+    us_s = tm.to_sub(up)
+    up2_s = tm.to_parent(us_s * 2.0, up)
+    pts = np.random.default_rng(46).uniform(0.02, 0.98, size=(500, 3))
+    pts[-1] = 2.0                                      # outside
+    vals = pointeval.interpolate_sharded(pointeval.prepare(ppf, pts),
+                                         up.cpu().numpy(), device=d, dtype="float64")
+    ref = evaluate_at_points(pfes, up.cpu().numpy(), pts)
+    return (pfespace.gather_global(spf, us.cpu().numpy()[None]), us_s.cpu().numpy(),
+            pfespace.gather_global(ppf, up2.cpu().numpy()[None]), up2_s.cpu().numpy(),
+            vals.cpu().numpy(), ref)
+
+
+def pp_poisson(fes, dev, dtype, rel_tol, max_iter=4000):
+    """−Δu = 1, u = 0 on the listed boundary, the PA diffusion operator and
+    Jacobi-PCG: (u, count, true residual, seconds by CUDA events or the host
+    clock)."""
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
+    from cardiac_ablation_ecm2_tpu_torch.ops.linearform import domain_lf
+
+    A = BilinearForm(fes, dev).add_domain_integrator("diffusion").assemble(dtype)
+    dg = A.diagonal()
+    m = torch.ones_like(dg)
+    m[torch.as_tensor(fes.essential_dofs(), dtype=torch.long, device=dev)] = 0.0
+    dg = dg * m + (1 - m)
+
+    def op(v):
+        return A.mult(v * m) * m + v * (1 - m)
+
+    b = domain_lf(fes, 1.0, dtype=dtype, device=dev) * m
+    t0 = time.perf_counter()
+    u, info = cg(op, b, M=lambda r: r / dg, rel_tol=rel_tol, max_iter=max_iter)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    return u, info, rel_residual(op, u, b), time.perf_counter() - t0
+
+
+def phase_md_rest(kc, dev, spaces):
+    """[46] the rest of the slice on the card; returns its launches."""
+    from cardiac_ablation_ecm2_tpu_torch.fem import mixed
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import geom_factors_for
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.fem.gridfunction import project
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.mesh import mesh as tmesh
+    from cardiac_ablation_ecm2_tpu_torch.mesh.particles import ParticleSet
+    from cardiac_ablation_ecm2_tpu_torch.mesh.point_eval import evaluate_at_points
+    from cardiac_ablation_ecm2_tpu_torch.mesh.trim import trim
+    from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
+    from cardiac_ablation_ecm2_tpu_torch.ops.linearform import delta_lf
+    from cardiac_ablation_ecm2_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    start_main_path()
+
+    # the driver at MD_SMALL_N, float64, card against CPU
+    argv = ["-n", str(MD_SMALL_N), "-s", str(MD_SMALL_STEPS), "--x64"]
+    lc, Tcc, Ttc = _md_driver(argv)
+    lh, Tch, Tth = _md_driver(argv + ["--cpu"])
+    err = max(float((Tcc - Tch).abs().max() / Tch.abs().max()),
+              float((Ttc - Tth).abs().max() / Tth.abs().max()))
+    counts = [int(line.split()[-1]) for line in lc[:-1]]
+    counts_h = [int(line.split()[-1]) for line in lh[:-1]]
+    same = [a.rsplit(" ", 1)[0] == b.rsplit(" ", 1)[0] for a, b in zip(lc, lh)]
+    print(f"[46] multidomain_heat -n {MD_SMALL_N} --x64: tissue CG on the card "
+          f"{counts}, on the CPU {counts_h}; fields within {err:.2e} of the CPU "
+          f"run's; lines but the counts {'equal' if all(same) else 'differ'}")
+    for a, b in zip(lc, lh):
+        if a != b:
+            print(f"[46]   card: {a}\n[46]   CPU:  {b}")
+    check(len(lc) == len(lh) and all(same) and err <= 1e-10
+          and all(abs(a - b) <= MD_COUNT_TOL for a, b in zip(counts, counts_h)),
+          f"[46] the driver: the card's lines equal the CPU's but for CG counts within "
+          f"{MD_COUNT_TOL}, the fields within 1e-10·max")
+
+    # trim, particles and point sources at the JAX tests' sizes
+    m = tmesh.make_cartesian_2d(4, 4)
+    cent = m.vertices[m.elements].mean(axis=1)
+    two = tmesh.Mesh(geom=m.geom, vertices=m.vertices, elements=m.elements,
+                     attributes=np.where(cent[:, 0] < 0.5, 1, 2), boundary=m.boundary,
+                     bdr_attributes=m.bdr_attributes)
+    out2 = trim(two, [2])
+    out3 = trim(two_material_3d(4), [1], bdr_attr_map={1: 99})
+    vols = [float(geom_factors_for(FESpace(o, 1), dtype="float64", device=dev).wdet.sum())
+            for o in (out2, out3)]
+    check((out2.bdr_attributes == 6).sum() == 4 and (out3.bdr_attributes == 99).sum() == 16
+          and max(abs(v - 0.5) for v in vols) <= 1e-12,
+          f"[46] trim: the cut faces' attributes and the kept volumes {vols}")
+    fes = FESpace(tmesh.make_cartesian_2d(8, 8), 2)
+    uvec = {d: torch.cat([project(fes, lambda x: -(x[..., 1] - 0.5), "float64", d),
+                          project(fes, lambda x: x[..., 0] - 0.5, "float64", d)])
+            for d in (dev, "cpu")}
+    pts = np.array([[0.75, 0.5], [0.5, 0.7], [0.6, 0.6]])
+    moved = {}
+    for d, u in uvec.items():
+        ps = ParticleSet(positions=pts.copy())
+        ps.advect(fes, u, dt=0.05, steps=40, clamp=(0.01, 0.99))
+        moved[d] = ps.positions
+    drift = np.abs(np.linalg.norm(moved[dev] - 0.5, axis=1)
+                   - np.linalg.norm(pts - 0.5, axis=1)).max()
+    check(np.array_equal(moved[dev], moved["cpu"]) and drift < 1e-5,
+          f"[46] ParticleSet.advect: the card's velocity field gives the CPU's "
+          f"positions, radius kept to {drift:.1e}")
+    fes3 = FESpace(tmesh.make_cartesian_2d(4, 4), 3)
+    dpts, s = [[0.33, 0.61], [0.9, 0.1], [5.0, 5.0]], [2.5, -1.0, 7.0]
+    b = delta_lf(fes3, dpts, s, dtype="float64", device=dev)
+    u = project(fes3, lambda x: x[..., 0] ** 3 - 2 * x[..., 1], "float64", dev)
+    vals = evaluate_at_points(fes3, u.cpu().numpy(), dpts)
+    pair = abs(float(b @ u) - (2.5 * vals[0] - vals[1]))
+    check(torch.equal(b.cpu(), delta_lf(fes3, dpts, s, dtype="float64", device="cpu"))
+          and pair < 1e-12, f"[46] delta_lf on the card bitwise the CPU's, b·u = Σ s u(x) "
+          f"({pair:.1e})")
+    print("[46] trim, ParticleSet.advect and delta_lf at the JAX tests' sizes: held")
+
+    # psubmesh and pointeval at world 1 over NCCL
+    us, us_s, up2, up2_s, pv, pref = launch.run_single(_md_rank)
+    perr = float(np.abs(pv - pref).max())
+    check(np.array_equal(us, us_s) and np.array_equal(up2, up2_s),
+          "[46] psubmesh at world 1 over NCCL: both transfers bitwise the serial maps")
+    check(perr <= 1e-13 and pv[-1] == 0.0,
+          f"[46] pointeval at world 1 over NCCL: within {perr:.1e} of the serial values")
+    print(f"[46] psubmesh and pointeval at world 1 over NCCL (two-material 12³ order 2, "
+          f"500 points): transfers bitwise, points within {perr:.1e}")
+
+    # order-2 Poisson on prisms and pyramids: >= 200k elements on the card,
+    # and card against CPU at a small size
+    for kind in ("prism", "pyramid"):
+        fes, host = spaces[kind]
+        torch.cuda.reset_peak_memory_stats()
+        u, info, res, sec = pp_poisson(fes, dev, torch.float64, PP_REL_TOL)
+        print(f"[46] {kind} order 2: {fes.mesh.ne:,} elements, {fes.ndof_scalar:,} "
+              f"dofs (host {host:.2f} s); Jacobi-PCG {info.iterations} iterations in "
+              f"{sec:.3f} s, {sec * 1e3 / max(info.iterations, 1):.4f} ms an iteration "
+              f"(host clock, synchronised); true residual {res:.2e}; peak "
+              f"{peak_gib():.2f} GiB")
+        check(fes.mesh.ne >= 200_000 and info.converged and res <= 1e-6
+              and bool(torch.isfinite(u).all()) and float(u.max()) > 0,
+              f"[46] the {kind} solve converged")
+        small = FESpace(getattr(tmesh, f"make_cartesian_3d_{kind}")(*PP_SMALL[kind]), 2)
+        uc, ic, _, _ = pp_poisson(small, dev, torch.float64, 1e-12)
+        uh, ih, _, _ = pp_poisson(small, "cpu", torch.float64, 1e-12)
+        e = float((uc.cpu() - uh).abs().max() / uh.abs().max())
+        check(abs(ic.iterations - ih.iterations) <= 1 and e <= 1e-10,
+              f"[46] {kind} {PP_SMALL[kind]}: card against CPU ({ic.iterations}/"
+              f"{ih.iterations} CG, {e:.1e})")
+        del u
+
+    # the order-p pyramid (p = 2-4) and the mixed cube, card against CPU
+    for p in (2, 3, 4):
+        f = FESpace(tmesh.make_cartesian_3d_pyramid(2, 2, 2), p)
+        ops = {d: BilinearForm(f, d).add_domain_integrator("diffusion")
+               .add_domain_integrator("mass").assemble("float64") for d in (dev, "cpu")}
+        x = torch.as_tensor(np.random.default_rng(p).standard_normal(f.ndof_scalar))
+        yc, yh = ops[dev].mult(x.to(dev)).cpu(), ops["cpu"].mult(x)
+        X = f.dof_coords
+        lin = torch.as_tensor(1.0 + 2 * X[:, 0] - X[:, 1] + 0.5 * X[:, 2], device=dev)
+        A = BilinearForm(f, dev).add_domain_integrator("diffusion").assemble("float64")
+        interior = np.ones(f.ndof_scalar, bool)
+        interior[f.essential_dofs()] = False
+        r = float(A.mult(lin).cpu()[torch.as_tensor(interior)].abs().max())
+        check(float((yc - yh).abs().max()) <= 1e-12 * float(yh.abs().max()) and r < 1e-9,
+              f"[46] pyramid order {p}: card apply within 1e-12 of the CPU's, linears "
+              f"in the kernel ({r:.1e})")
+    mm = mixed.make_mixed_cube(3)
+    sol = {}
+    for d in (dev, "cpu"):
+        mf = mixed.MixedFESpace(mm, 2, d, "float64")
+        A = mixed.MixedPAOperator(mf, diffusion_coeff=1.0)
+        m = torch.ones(mf.ndof, dtype=torch.float64, device=d)
+        m[torch.as_tensor(mf.essential_dofs(), dtype=torch.long, device=d)] = 0.0
+        dg = A.diagonal() * m + (1 - m)
+        b = mixed.mixed_domain_lf(mf, lambda q: 1.0 + 0 * q[..., 0]) * m
+        u, info = cg(lambda v: A.mult(v * m) * m + v * (1 - m), b, M=lambda r: r / dg,
+                     rel_tol=1e-12, max_iter=4000)
+        sol[str(d)] = (u.cpu(), info.iterations)
+        if d is dev:
+            for i, (g, _, _) in enumerate(mm.blocks):
+                check_restriction(kc, mf.restrictions[i], f"mixed cube {g.name} block ",
+                                  "[46]", seed=460 + i)
+    (uc, ic), (uh, ih) = sol[str(dev)], sol["cpu"]
+    e = float((uc - uh).abs().max() / uh.abs().max())
+    check(abs(ic - ih) <= 1 and e <= 1e-10,
+          f"[46] mixed cube order 2 Poisson: card against CPU ({ic}/{ih} CG, {e:.1e})")
+    print(f"[46] pyramid orders 2-4 and the mixed cube (hex, pyramid, tet blocks): "
+          f"card against CPU held; mixed Poisson {ic} CG, {e:.1e}")
+    launches = main_path_launches()
+    print("[46] launches on the card's runs: " + ", ".join(
+        f"{k} {launches[k]}" for k in RESTRICTION_KERNELS + ("take_flat",)))
+    for k in RESTRICTION_KERNELS + ("take_flat",):
+        check(launches[k] > 0, f"[46] the card's runs launched {k}")
+    print(f"[46] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def phase_dryrun():
     """``dryrun_multichip`` over every visible card (one spawned rank a
     card, NCCL): the sharded bioheat step, the sharded NC Poisson (a), DG
@@ -5813,8 +6234,109 @@ def phase_dryrun():
           f"{out.max():.6f}, {time.perf_counter() - t0:.1f} s")
 
 
-def main():
+# ----------------------------------------------------------------------------
+# host set-up in worker processes: each builds a phase's meshes and spaces
+# (numpy, picklable) from the start of the script, beside the earlier phases
+# ----------------------------------------------------------------------------
+
+#: worker processes run single-threaded: numpy's BLAS and torch each take
+#: one thread, so the workers do not crowd the phases they run beside
+WORKER_ENV = {"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1",
+              "MKL_NUM_THREADS": "1"}
+
+
+def start_worker(fn):
+    """``fn()`` in a new spawned worker process (single-threaded): (its
+    pool, its future)."""
+    saved = {k: os.environ.get(k) for k in WORKER_ENV}
+    os.environ.update(WORKER_ENV)
+    try:
+        pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+        fut = pool.submit(fn)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    return pool, fut
+
+
+def worker_result(tag, what, pool, fut):
+    """Wait for a worker's result, print the wait, shut the worker down."""
+    t0 = time.perf_counter()
+    out = fut.result()
+    pool.shutdown()
+    print(f"{tag} {what} from its worker process: waited "
+          f"{time.perf_counter() - t0:.2f} s for them")
+    return out
+
+
+def hex_host():
+    """[2]-[4]'s n=126 cardiac hex mesh and order-2 space, with their host
+    seconds."""
     from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    mesh = make_cardiac_hex_mesh(126, lengths=(L, L, L / 2), electrode_radius=0.004)
+    t1 = time.perf_counter()
+    fes = FESpace(mesh, 2)
+    return mesh, fes, t1 - t0, time.perf_counter() - t1
+
+
+def hmg_host():
+    """[25]'s hierarchy (the cardiac hex mesh n=32 refined twice) and its
+    order-2 spaces, with their host seconds."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    meshes = [make_cardiac_hex_mesh(32, lengths=(L, L, L / 2), electrode_radius=0.004)]
+    for _ in range(2):
+        meshes.append(meshes[-1].uniform_refinement())
+    mesh_s = time.perf_counter() - t0
+    spaces, space_s = [], []
+    for m in meshes:
+        t0 = time.perf_counter()
+        spaces.append(FESpace(m, 2))
+        space_s.append(time.perf_counter() - t0)
+    return meshes, spaces, mesh_s, space_s
+
+
+def ex3_host():
+    """[38]'s hierarchy up to EX3_N³ and the fine level's ND₁ and order-1 H1
+    spaces, with their host seconds."""
+    from cardiac_ablation_ecm2_tpu_torch.examples.ex3_maxwell import hierarchy
+    from cardiac_ablation_ecm2_tpu_torch.fem.fe_vector import NDSpace
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    meshes = hierarchy(EX3_N)
+    t1 = time.perf_counter()
+    spaces = (NDSpace(meshes[-1]), FESpace(meshes[-1], 1))
+    return meshes, spaces, t1 - t0, time.perf_counter() - t1
+
+
+def ex16_host():
+    """[14]'s EX16_N³ cube and its order-2 space, with their host seconds."""
+    from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_3d
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    mesh = make_cartesian_3d(EX16_N, EX16_N, EX16_N)
+    t1 = time.perf_counter()
+    fes = FESpace(mesh, 2)
+    return mesh, fes, t1 - t0, time.perf_counter() - t1
+
+
+
+
+def main():
     from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
     from cardiac_ablation_ecm2_tpu_torch.utils.config import configure
 
@@ -5823,29 +6345,45 @@ def main():
     configure(quad_extra=0)          # bench.py's setting: nq1d = p + 1
     phase_build()
 
-    # the n=66 tet mesh's Delaunay (30-50 s on the host) runs in a worker
-    # process beside the hex phases
-    tet_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
-    tet_built = tet_pool.submit(cardiac_tet_mesh, 66)
-    # [44]'s float64 CPU solve runs in a worker process from the start too
-    nc_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
-    nc_small = nc_pool.submit(nc_small_cpu)
+    # the host set-up of the big phases runs in worker processes from the
+    # start (one thread each): the n=126 hex mesh and space ([2]-[4], built
+    # while [3] and [8]-[12a], which need neither, run), the n=66 tet
+    # mesh's Delaunay ([7]), [44]'s float64 CPU solve, [14]'s, [25]'s and
+    # [38]'s meshes and spaces, and [45]-[46]'s (the n=96 multidomain tables,
+    # the large prism and pyramid spaces)
+    hex_work = start_worker(hex_host)
+    tet_pool, tet_built = start_worker(functools.partial(cardiac_tet_mesh, 66))
+    nc_pool, nc_small = start_worker(nc_small_cpu)
+    ex16_work = start_worker(ex16_host)
+    hmg_work = start_worker(hmg_host)
+    ex3_work = start_worker(ex3_host)
+    md_pool, md_built = start_worker(md_host)
     kc = KernelCheck(dev)
     phase_kernel_random(kc)
-    t0 = time.perf_counter()
-    hex_mesh = make_cardiac_hex_mesh(126, lengths=(L, L, L / 2),
-                                     electrode_radius=0.004)
-    t1 = time.perf_counter()
-    fes = FESpace(hex_mesh, 2)
-    t2 = time.perf_counter()
+    phase_small_end_to_end(dev)
+
+    phase_diffusion_kernel(dev)
+    _, theta48 = phase_lattice48(dev)
+    phase_par_lattice(dev, theta48)
+    del theta48
+    op, masked_launches = phase_masked(dev)
+    err, fd_numbers = check_operator_diffusion("[8]", "masked n=126 K_qd", op,
+                                               timed=True)
+    fd_numbers["max_abs_err"] = err
+    del op
+
+    probe_numbers = phase_probes(dev)
+    phase_ablation_small(dev, make_cardiac_hex_mesh(
+        16, lengths=(L, L, L / 2), electrode_radius=0.004))
+
+    hex_mesh, fes, mesh_s, fes_s = worker_result("[4]", "the n=126 mesh and space",
+                                                 *hex_work)
     check((hex_mesh.ne, fes.ndof) == (995_336, 8_092_657), "n=126 mesh size")
     phase_kernel_restriction(kc, fes)
-    phase_small_end_to_end(dev)
-    hex_launches, *hex_run = phase_main(dev, hex_mesh, fes, (t1 - t0, t2 - t1))
+    hex_launches, *hex_run = phase_main(dev, hex_mesh, fes, (mesh_s, fes_s))
     bf16_numbers = phase_modes(dev, fes, hex_run)
     phase_par_small(dev)
     par_launches = phase_par_main(kc, dev, hex_mesh, fes)
-    mesh_s = t1 - t0
     hex_fes = fes                  # kept on the host for [29] and [31]
     for cache in ("_restrictions", "_geom_factors", "_bdr_restrictions", "_bdr_geom"):
         hex_fes.__dict__.pop(cache, None)
@@ -5868,31 +6406,20 @@ def main():
     phase_ablation_tet(dev, mesh, host_s)
     del mesh
 
-    phase_diffusion_kernel(dev)
-    _, theta48 = phase_lattice48(dev)
-    phase_par_lattice(dev, theta48)
-    del theta48
-    op, masked_launches = phase_masked(dev)
-    err, fd_numbers = check_operator_diffusion("[8]", "masked n=126 K_qd", op,
-                                               timed=True)
-    fd_numbers["max_abs_err"] = err
-    del op
-
-    probe_numbers = phase_probes(dev)
-    phase_ablation_small(dev, make_cardiac_hex_mesh(
-        16, lengths=(L, L, L / 2), electrode_radius=0.004))
     phase_ablation_main(dev, hex_mesh, mesh_s)
     _, poisson_ref = phase_poisson(kc, dev, hex_mesh, hex_fes)
     phase_par_poisson(kc, dev, hex_mesh, poisson_ref)
     del hex_mesh, poisson_ref
     for cache in ("_restrictions", "_geom_factors", "_bdr_restrictions", "_bdr_geom"):
         hex_fes.__dict__.pop(cache, None)
-    phase_heat(kc, dev, n=EX16_N)
+    phase_heat(kc, dev, n=EX16_N, built=worker_result(
+        "[14]", "the mesh and space", *ex16_work))
     phase_entry(dev)
     bp_launches, bp_numbers = phase_bp(kc, dev)
     phase_elasticity(kc, dev)
     phase_gmres(kc, dev)
-    hmg_launches, spaces, ht, refined_rt = phase_hmg(kc, dev)
+    hmg_launches, spaces, ht, refined_rt = phase_hmg(kc, dev, worker_result(
+        "[25]", "the hierarchy and its spaces", *hmg_work))
     d2_launches = phase_2d(kc, dev)
     refine_launches = phase_prefine(kc, dev, spaces, ht)
     del spaces, ht
@@ -5912,7 +6439,8 @@ def main():
     del adv_fes, sipg_fes, u_par, x_sipg
     condense_launch = phase_condense_complex(kc, dev)
     phase_rest_dg(kc, dev)
-    ams_launch, jac_launch, ex3_numbers = phase_ex3(kc, dev)
+    ams_launch, jac_launch, ex3_numbers = phase_ex3(kc, dev, worker_result(
+        "[38]", "the hierarchy and the fine spaces", *ex3_work))
     mag_launch = phase_magnetic(kc, dev, mag_mesh)
     del mag_mesh
     hdiv_launch = phase_hdiv(kc, dev)
@@ -5922,6 +6450,14 @@ def main():
     pnc_launch = phase_nc_rest(kc, dev, nc_sp, nc_A, nc_small)
     nc_pool.shutdown()
     del nc_sp, nc_A
+    md_prob, md_host_s, md_spaces = worker_result("[45]", "the host tables", md_pool,
+                                                  md_built)
+    configure(quad_extra=1)          # the driver's setting: nq1d = p + 2
+    md_launch, md_numbers = phase_md_main(kc, dev, md_prob, md_host_s)
+    del md_prob
+    md_rest_launch = phase_md_rest(kc, dev, md_spaces)
+    del md_spaces
+    configure(quad_extra=0)
     phase_dryrun()
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -6001,7 +6537,8 @@ def main():
                "segment_sum": "NC master map E->L (ne,nd) float32"}
     for entry in restriction:
         k = entry["name"]
-        entry.update(nc_launches=nc_launch[k], pnc_launches=pnc_launch[k])
+        entry.update(nc_launches=nc_launch[k], pnc_launches=pnc_launch[k],
+                     md_launches=md_launch[k], md_rest_launches=md_rest_launch[k])
         if k in nc_rows:
             entry.update({f"nc_map_{f}": kc.times[nc_rows[k]][f]
                           for f in ("ms", "plain_ms", "bound_ms", "library_ms")})
@@ -6009,6 +6546,9 @@ def main():
                           nc_p_plain_ms=nc_numbers["nc_p_plain_ms"])
     restriction[2].update(nc_pt_ms=nc_numbers["nc_pt_ms"],
                           nc_pt_plain_ms=nc_numbers["nc_pt_plain_ms"])
+    # the multi-domain slice: [45]'s tissue to_sub (take_flat, one gather_sum
+    # launch) at its shape, float64, and the launches of [46]'s card runs
+    restriction[0].update(md_numbers, md_rest_take_flat_launches=md_rest_launch["take_flat"])
     # the DG face route's float32 numbers at [33]'s interior-face read
     # (324,864 rows of 64) and slot list (49.5M slots into 7,077,888 dofs)
     restriction[2].update({f"dg_{f}": dg_numbers["segment_sum"][f]
@@ -6034,7 +6574,9 @@ def main():
              rest_launches=rest_launches["fused_diffusion"],
              **dg_path_launches("fused_diffusion"),
              **vecfe_path_launches("fused_diffusion"),
-             pnc_launches=pnc_launch["fused_diffusion"]),
+             pnc_launches=pnc_launch["fused_diffusion"],
+             md_launches=md_launch["fused_diffusion"],
+             md_rest_launches=md_rest_launch["fused_diffusion"]),
     ] + [dict(name=k, route="cuda", **KERNELS[k], **probe_numbers[k],
               measures=PROBE_MEASURES) for k in PROBE_KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,7 @@ from cardiac_ablation_ecm2_tpu_torch.linalg import smoothers
 from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
 from cardiac_ablation_ecm2_tpu_torch.mesh import mesh as tmesh
 from cardiac_ablation_ecm2_tpu_torch.ops import vecfe as to
+from test_torch_newton import beside
 
 F64 = dict(dtype="float64", device="cpu")
 
@@ -164,30 +165,38 @@ def test_pcg_equals_jax(kind, monkeypatch):
     bounds, share = shared_bounds(monkeypatch)
     if kind == "ams":
         jsp, tsp = jv.NDSpace(jm), tv.NDSpace(tm)
-        jop = jo.build_nd_operator(jsp, 1.0, 1.0)
         top = to.build_nd_operator(tsp, 1.0, 1.0, **F64)
     else:
         jsp, tsp = jv.RTSpace(jm), tv.RTSpace(tm)
-        jop = jo.build_rt_operator(jsp, 1.0, 1.0)
         top = to.build_rt_operator(tsp, 1.0, 1.0, **F64)
     ess = tsp.essential_dofs(bdr)
-    jA, jd, jmask = masked(jop, ess, tsp.ndof, "jax")
     tA, td, tmask = masked(top, ess, tsp.ndof, "torch")
     b = np.random.default_rng(1).standard_normal(tsp.ndof)
     if kind == "ams":
         tM = tams.make_ams(tsp, th1, tA, td, ess_bdr=bdr, meshes=tms, **F64)
-        queue = share()
-        jM = jams.make_ams(jsp, jh1, jA, jd, ess_bdr=bdr, meshes=jms)
     else:
         tM = tams.make_ads(tsp, tv.NDSpace(tm), th1, tA, td, ess_bdr=bdr, meshes=tms, **F64)
-        queue = share()
-        jM = jams.make_ads(jsp, jv.NDSpace(jm), jh1, jA, jd, ess_bdr=bdr, meshes=jms)
-    assert not queue and len(bounds) == (6 if kind == "ams" else 9)
+    queue = share()
+
+    def jax_side():
+        if kind == "ams":
+            jop = jo.build_nd_operator(jsp, 1.0, 1.0)
+            jA, jd, jmask = masked(jop, ess, tsp.ndof, "jax")
+            jM = jams.make_ams(jsp, jh1, jA, jd, ess_bdr=bdr, meshes=jms)
+        else:
+            jop = jo.build_rt_operator(jsp, 1.0, 1.0)
+            jA, jd, jmask = masked(jop, ess, tsp.ndof, "jax")
+            jM = jams.make_ads(jsp, jv.NDSpace(jm), jh1, jA, jd, ess_bdr=bdr, meshes=jms)
+        return jax_pcg(jA, jnp.asarray(b) * jmask, jM, rel_tol=1e-10, max_iter=500)
+
+    # JAX's set-up and PCG beside the port's solves
+    jax_run = beside(jax_side)
     x, info = cg(tA, torch.as_tensor(b) * tmask, M=tM, rel_tol=1e-10, max_iter=500)
-    jx, jits = jax_pcg(jA, jnp.asarray(b) * jmask, jM, rel_tol=1e-10, max_iter=500)
-    assert info.converged and info.iterations == jits
-    assert np.abs(np.asarray(jx) - x.numpy()).max() <= 1e-10 * np.abs(np.asarray(jx)).max()
     # and the preconditioner earns its keep against Jacobi
     _, ij = cg(tA, torch.as_tensor(b) * tmask, M=lambda r: r / td, rel_tol=1e-10,
                max_iter=2000)
+    jx, jits = jax_run.result()
+    assert not queue and len(bounds) == (6 if kind == "ams" else 9)
+    assert info.converged and info.iterations == jits
+    assert np.abs(np.asarray(jx) - x.numpy()).max() <= 1e-10 * np.abs(np.asarray(jx)).max()
     assert info.iterations < ij.iterations

@@ -97,18 +97,30 @@ def _jax_solve(fes, kind, ell):
 
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_bp_run_equals_root_script(mode, capsys):
+    from test_torch_newton import beside
+
     kw = MODES[mode]
+
+    def jax_side():
+        out = []
+        for order in (1, 2, 3, 4):
+            fes = _jax_space(order, kw.get("structured", False),
+                             kw.get("simplex", False))
+            for kind in ("mass", "diffusion"):
+                out.append((fes.ndof,) + _jax_solve(fes, kind, kw.get("ell", False)))
+        return out
+
+    jax_run = beside(jax_side)          # JAX's solves beside the port's run
     runs = bp.run((1, 2, 3, 4), N, "float64", ITERS, device="cpu", **kw)
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert [ln["bench"] for ln in lines] == ["BP1", "BP3"] * 4
+    jax_runs = iter(jax_run.result())
     k = 0
     for order in (1, 2, 3, 4):
-        fes = _jax_space(order, kw.get("structured", False),
-                         kw.get("simplex", False))
-        for bench, kind in (("BP1", "mass"), ("BP3", "diffusion")):
-            xj, itj = _jax_solve(fes, kind, kw.get("ell", False))
+        for bench in ("BP1", "BP3"):
+            ndof, xj, itj = next(jax_runs)
             r = runs[k]
-            assert (r["bench"], r["order"], r["ndof"]) == (bench, order, fes.ndof)
+            assert (r["bench"], r["order"], r["ndof"]) == (bench, order, ndof)
             assert r["cg_iters"] == lines[k]["cg_iters"] == itj == ITERS
             x = r["x"].numpy()
             assert np.isfinite(x).all()

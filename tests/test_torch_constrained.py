@@ -37,6 +37,7 @@ from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import Mesh, make_cartesian_2d
 from cardiac_ablation_ecm2_tpu_torch.models.topopt import TopOpt
 from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
 from cardiac_ablation_ecm2_tpu_torch.ops.linearform import boundary_lf_vector, domain_lf
+from test_torch_newton import beside
 
 RTOL = 1e-10
 _MESH = ("geom", "vertices", "elements", "attributes", "boundary", "bdr_attributes")
@@ -199,14 +200,23 @@ def test_topopt():
     jo = JTopOpt(_beam(jquad, JMesh, 12, 6), volfrac=0.4, filter_radius=0.3)
     to = TopOpt(_beam(make_cartesian_2d, Mesh, 12, 6), volfrac=0.4,
                 filter_radius=0.3, device="cpu")
-    rj, rt = jnp.full(jo.mesh.ne, 0.4), torch.full((to.mesh.ne,), 0.4,
-                                                    dtype=torch.float64)
-    uj = ut = None
+
+    def jax_side():
+        rj, uj, out = jnp.full(jo.mesh.ne, 0.4), None, []
+        for _ in range(3):
+            _, info = jo._solve(rj, uj)      # JAX's solve of this step, for its count
+            rj, uj, cj = jo.step(rj, uj)
+            out.append((int(info.iterations), rj, uj, cj))
+        return out
+
+    jax_run = beside(jax_side)
+    rt, ut = torch.full((to.mesh.ne,), 0.4, dtype=torch.float64), None
+    ours = []
     for _ in range(3):
-        _, info = jo._solve(rj, uj)          # JAX's solve of this step, for its count
-        rj, uj, cj = jo.step(rj, uj)
         rt, ut, ct = to.step(rt, ut)
-        assert to.info.iterations == int(info.iterations)
+        ours.append((to.info.iterations, rt.clone(), ut.clone(), ct))
+    for (it, rt, ut, ct), (ij, rj, uj, cj) in zip(ours, jax_run.result()):
+        assert it == ij
         assert abs(ct - cj) <= RTOL * abs(cj)
         close(ut, uj)
         close(rt, rj)

@@ -16,7 +16,11 @@ step at world size 1 over NCCL equal to world size 1 over gloo, and the
 mesh core (2D restrictions bitwise to plain, ``HTransfer``, h-multigrid
 PCG and 2D Poisson on quads, triangles and curved quads) on CUDA equal to
 the CPU, and the NC slice (P and Pᵀ bitwise their plain versions, NC
-solves and the sharded NC Poisson at world 1 over NCCL equal to the CPU).
+solves and the sharded NC Poisson at world 1 over NCCL equal to the CPU),
+and the multi-domain and mixed-geometry slice (the SubMesh transfer maps
+bitwise their plain versions, the multidomain driver and prism/pyramid
+solves equal to the CPU, the mixed operator bitwise the sum of its plain
+blocks).
 Needs an NVIDIA GPU and nvcc; skips without a GPU.  This file imports no
 JAX, so it also runs where JAX is not installed:
 
@@ -1290,3 +1294,93 @@ def test_pnc_world1_nccl_equals_gloo(cuda):
     uc, ic = launch.run_single(lambda r, w, d: _pnc_rank(r, w, d, nc), "cpu")
     assert abs(ig - ic) <= 2
     assert np.abs(ug - uc).max() <= 1e-10 * np.abs(uc).max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_transfer_maps_bitwise_plain(cuda, dtype):
+    """``to_sub`` (one ``take_flat`` launch) and ``to_parent``
+    (``index_copy_``) on the card bitwise their plain versions."""
+    from cardiac_ablation_ecm2_tpu_torch.examples.multidomain_heat import setup_host
+    from cardiac_ablation_ecm2_tpu_torch.mesh.submesh import TransferMap
+    from cardiac_ablation_ecm2_tpu_torch.ops import gather_probes as gp
+
+    prob = setup_host(12, 2)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    up = torch.randn(prob.pfes.ndof_scalar, generator=gen, device=cuda, dtype=dtype)
+    for s2p in (prob.s2p_t, prob.s2p_c):
+        tm = TransferMap(s2p, cuda)
+        before = gp.take_flat.launches
+        us = tm.to_sub(up)
+        assert gp.take_flat.launches == before + 1
+        idx = torch.as_tensor(s2p, device=cuda)
+        assert torch.equal(us, up[idx])
+        got = tm.to_parent(us * 2, up)
+        want = up.clone()
+        want[idx] = us * 2
+        assert torch.equal(got, want)
+
+
+def test_multidomain_and_prism_pyramid_cuda_equal_cpu(cuda):
+    """The multidomain driver's three steps at n = 6 and order-2 Poisson
+    solves on prism and pyramid meshes, float64: equal CG counts and
+    fields within 1e-10 of max|u|."""
+    from cardiac_ablation_ecm2_tpu_torch.examples.multidomain_heat import (
+        Coupled,
+        setup_host,
+    )
+    from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
+    from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import (
+        make_cartesian_3d_prism,
+        make_cartesian_3d_pyramid,
+    )
+
+    prob = setup_host(6, 2)
+
+    def heat(dev):
+        run = Coupled(prob, 0.05, dev, "float64")
+        out = [run.step() for _ in range(3)]
+        return [(c.cpu(), t.cpu(), ic.iterations, it.iterations) for c, t, ic, it in out]
+
+    for a, b in zip(heat(cuda), heat("cpu")):
+        assert a[2:] == b[2:]
+        for x, y in zip(a[:2], b[:2]):
+            assert (x - y).abs().max() <= 1e-10 * y.abs().max()
+
+    def poisson(mesh, dev):
+        fes = FESpace(mesh, 2)
+        A = BilinearForm(fes, dev).add_domain_integrator("diffusion").assemble("float64")
+        m = torch.ones(fes.ndof_scalar, dtype=torch.float64, device=dev)
+        m[torch.as_tensor(fes.essential_dofs(), dtype=torch.long, device=dev)] = 0.0
+        u, info = cg(lambda v: A.mult(v * m) * m + v * (1 - m), m.clone(),
+                     rel_tol=1e-12, max_iter=4000)
+        return u.cpu(), info.iterations
+
+    for mesh in (make_cartesian_3d_prism(4, 4, 3), make_cartesian_3d_pyramid(3, 3, 3)):
+        (uc, ic), (uh, ih) = poisson(mesh, cuda), poisson(mesh, "cpu")
+        assert abs(ic - ih) <= 1 and (uc - uh).abs().max() <= 1e-10 * uh.abs().max()
+
+
+def test_mixed_operator_is_sum_of_plain_blocks(cuda):
+    """The mixed cube's operator on the card: each block's E→L sum (the
+    segment-sum kernel) bitwise its plain version, summed in block order
+    to the operator bitwise, and within rounding of the CPU."""
+    from cardiac_ablation_ecm2_tpu_torch.fem import mixed
+    from cardiac_ablation_ecm2_tpu_torch.ops.block_gather import segment_sum_plain
+
+    mm = mixed.make_mixed_cube(3)
+    for dtype in ("float32", "float64"):
+        fes = mixed.MixedFESpace(mm, 2, cuda, dtype)
+        A = mixed.MixedPAOperator(fes, diffusion_coeff=1.0, mass_coeff=2.0)
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        x = torch.randn(fes.ndof, generator=gen, device=cuda, dtype=getattr(torch, dtype))
+        y = torch.zeros_like(x)
+        for b, R in enumerate(fes.restrictions):
+            ye = A.block_apply(b, x)
+            got = R.mult_transpose(ye)
+            assert torch.equal(got, segment_sum_plain(ye.reshape(-1), R.slots, R.offsets))
+            y = y + got
+        assert torch.equal(y, A.mult(x))
+        cpu = mixed.MixedPAOperator(mixed.MixedFESpace(mm, 2, "cpu", dtype),
+                                    diffusion_coeff=1.0, mass_coeff=2.0).mult(x.cpu())
+        tol = 1e-5 if dtype == "float32" else 1e-12
+        assert (A.mult(x).cpu() - cpu).abs().max() <= tol * cpu.abs().max()

@@ -123,8 +123,11 @@ def test_unported_inputs_raise():
         ex1_poisson.main(["-m", "star.mesh"] + CPU)
     with pytest.raises(NotImplementedError, match="item 7"):
         ex1_poisson.main(["-m", "inline-quad-2", "--vtu", "u.vtu"] + CPU)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        common.make_inline("inline-wedge-2")
+    # the prism and pyramid makers are ported: the root driver's inline specs
+    assert common.make_inline("inline-wedge-2").ne == 16
+    assert common.make_inline("inline-pyramid-2").ne == 48
+    with pytest.raises(SystemExit):
+        common.make_inline("inline-star-2")
     args = common.standard_parser("x").parse_args(["-m", "inline-tri-2", "-r", "1"])
     assert common.load_mesh(args).ne == 32
     assert common.setup(common.standard_parser("x").parse_args(["--cpu"])) == dict(

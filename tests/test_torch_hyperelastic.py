@@ -47,7 +47,7 @@ from cardiac_ablation_ecm2_tpu_torch.models import elasticity as telasticity
 from cardiac_ablation_ecm2_tpu_torch.models import eikonal as teik
 from cardiac_ablation_ecm2_tpu_torch.models import hyperelastic as thyp
 from cardiac_ablation_ecm2_tpu_torch.models import incompressible as tinc
-from test_torch_newton import jax_newton
+from test_torch_newton import beside, jax_newton
 
 RTOL = 1e-10
 
@@ -122,13 +122,16 @@ def test_energy_residual_tangent(beams):
 @pytest.mark.parametrize("case", ["2d", "3d"])
 def test_solve(beams, case):
     jp, tp = beams[case]
-    uj, ij = jp.solve(rel_tol=1e-10)
+
     inv = jp._prec_inv
-    _, kj, its = jax_newton(jp.residual, jnp.zeros(jp.fes.ndof), rel_tol=1e-10,
-                            max_iter=30, linear_max_iter=800, line_search=12,
-                            precond=lambda u: (lambda r: inv * r))
-    assert kj == int(ij.iterations)
+    # JAX's solve and its loop written out, each in a thread of its own
+    solve_run = beside(lambda: jp.solve(rel_tol=1e-10))
+    newton_run = beside(lambda: jax_newton(
+        jp.residual, jnp.zeros(jp.fes.ndof), rel_tol=1e-10, max_iter=30,
+        linear_max_iter=800, line_search=12, precond=lambda u: (lambda r: inv * r)))
     ut, it = tp.solve(rel_tol=1e-10)
+    (uj, ij), (_, kj, its) = solve_run.result(), newton_run.result()
+    assert kj == int(ij.iterations)
     assert it.converged and bool(ij.converged)
     assert it.iterations == kj and list(it.linear_iterations) == its, (it, its)
     assert it.iterations <= 4
@@ -171,11 +174,15 @@ def test_incompressible(case):
               else (jhex(*shape), make_cartesian_3d(*shape)))
     jp = jinc.IncompressibleHyperelastic(jm, order=2, mu=1.0, ess=ess)
     tp = tinc.IncompressibleHyperelastic(tm, order=2, mu=1.0, ess=ess, device="cpu")
-    xj, ij = jp.solve(rel_tol=rel_tol)
-    _, kj, its = jax_newton(jp.residual, jp.vals, rel_tol=rel_tol, max_iter=30,
-                            linear_max_iter=2000, linear_solver="gmres")
-    assert kj == int(ij.iterations)
+
+    # JAX's solve and its loop written out, each in a thread of its own
+    solve_run = beside(lambda: jp.solve(rel_tol=rel_tol))
+    newton_run = beside(lambda: jax_newton(
+        jp.residual, jp.vals, rel_tol=rel_tol, max_iter=30, linear_max_iter=2000,
+        linear_solver="gmres"))
     xt, it = tp.solve(rel_tol=rel_tol)
+    (xj, ij), (_, kj, its) = solve_run.result(), newton_run.result()
+    assert kj == int(ij.iterations)
     assert it.converged and it.iterations == kj and list(it.linear_iterations) == its
     close(xt, xj)
     F = tp._grad_u(xt[: tp.nu]) + torch.eye(tp.dim, dtype=xt.dtype)
@@ -188,18 +195,25 @@ def test_eikonal():
     js = jeik.EikonalSolver(jquad(6, 6), order=2, p_schedule=sched)
     ts = teik.EikonalSolver(make_cartesian_2d(6, 6), order=2, p_schedule=sched,
                             device="cpu")
-    uj, ij = js.solve()
-    ut, it = ts.solve()
-    # JAX's continuation with every Newton step's CG count visible
     m = js.mask
 
     def res(v, p):
         return jax.grad(lambda w: js.energy(w, p))(v) * m + v * (1 - m)
 
-    u = jnp.zeros(js.fes.ndof_scalar)
-    for p, info in zip(sched, ts.infos):
-        u, k, its = jax_newton(res, u, rel_tol=js.rel_tol, max_iter=40,
-                               line_search=8, args=(jnp.float64(p),))
-        assert (info.iterations, list(info.linear_iterations)) == (k, its), (p, info)
+    def jax_steps():
+        """JAX's continuation with every Newton step's CG count visible."""
+        u, steps = jnp.zeros(js.fes.ndof_scalar), []
+        for p in sched:
+            u, k, its = jax_newton(res, u, rel_tol=js.rel_tol, max_iter=40,
+                                   line_search=8, args=(jnp.float64(p),))
+            steps.append((k, its))
+        return steps
+
+    solve_run, steps_run = beside(js.solve), beside(jax_steps)
+    ut, it = ts.solve()
+    (uj, ij), steps = solve_run.result(), steps_run.result()
+    assert len(ts.infos) == len(steps)
+    for p, info, want in zip(sched, ts.infos, steps):
+        assert (info.iterations, list(info.linear_iterations)) == want, (p, info)
     assert it.converged and it.iterations == int(ij.iterations)
     close(ut, uj)

@@ -16,6 +16,8 @@ against the JAX package, float64 on the CPU:
   ``SIASolver`` orders 1, 2, 4 on the oscillator of JAX's tests, to
   1e-13."""
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
@@ -54,6 +56,16 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def beside(fn):
+    """``fn`` started in a background thread (its future): JAX compiles and
+    runs outside the GIL, so the port's side of a test runs beside it.
+    Shared by the test files that hold the port to a slow JAX reference."""
+    pool = ThreadPoolExecutor(1)
+    fut = pool.submit(fn)
+    pool.shutdown(wait=False)
+    return fut
 
 
 def close(a, b, rtol=RTOL):
@@ -240,11 +252,16 @@ def _nonlinear_diffusion(n=8):
 def test_newton_nonlinear_diffusion():
     jres, tres, n = _nonlinear_diffusion()
     kw = dict(rel_tol=1e-11, linear_rel_tol=1e-10, linear_max_iter=800)
-    uj, ij = jnewton_fn(jres, jnp.zeros(n), **kw)
-    uw, kw_it, its = jax_newton(jres, jnp.zeros(n), **kw)
+
+    def jax_side():
+        uj, ij = jnewton_fn(jres, jnp.zeros(n), **kw)
+        return (uj, ij) + jax_newton(jres, jnp.zeros(n), **kw)
+
+    jax_run = beside(jax_side)
+    ut, it = tnewton.newton(tres, torch.zeros(n, dtype=torch.float64), **kw)
+    uj, ij, uw, kw_it, its = jax_run.result()
     assert kw_it == int(ij.iterations)
     close(np.asarray(uw), np.asarray(uj), 1e-12)
-    ut, it = tnewton.newton(tres, torch.zeros(n, dtype=torch.float64), **kw)
     assert it.converged and it.iterations == kw_it, (it, kw_it)
     assert list(it.linear_iterations) == its
     close(ut, uj)

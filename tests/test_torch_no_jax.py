@@ -1,6 +1,8 @@
 """The PyTorch port never imports JAX: importing every one of its modules
 (the example programs of ``cardiac_ablation_ecm2_tpu_torch/examples``
-included) in a fresh interpreter leaves ``jax`` out of ``sys.modules``."""
+included) in a fresh interpreter leaves ``jax`` out of ``sys.modules``.
+Each check is one such interpreter; the module starts them all together,
+and each test reads its own."""
 
 import os
 import subprocess
@@ -35,13 +37,50 @@ print("LEAKED", bad)
 """
 
 
-def test_port_imports_no_jax():
+def _module_probe(modules):
+    """A probe importing the port's ``modules`` alone: each is among those
+    the package walk reaches."""
+    return ("import importlib, pkgutil, sys\n"
+            "import cardiac_ablation_ecm2_tpu_torch as pkg\n"
+            "names = {m.name for m in pkgutil.walk_packages(pkg.__path__, "
+            "pkg.__name__ + '.')}\n"
+            f"mods = ['cardiac_ablation_ecm2_tpu_torch.' + m for m in {modules!r}]\n"
+            "assert set(mods) <= names, set(mods) - names\n"
+            "for m in mods:\n"
+            "    importlib.import_module(m)\n"
+            "print('LEAKED', sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'cardiac_ablation_ecm2_tpu.'))))\n")
+
+
+_RUNS = {}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _probes():
+    """Every probe's interpreter, started together with the module."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
-    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=root, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert "LEAKED []" in out.stdout, out.stdout
+    for name, code in (("all", _PROBE), ("vector_fe", _module_probe(VECTOR_FE)),
+                       ("slice_16", _module_probe(SLICE_16))):
+        _RUNS[name] = subprocess.Popen([sys.executable, "-c", code], cwd=root, env=env,
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True)
+    yield
+    for proc in _RUNS.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _result(name):
+    out, err = _RUNS[name].communicate(timeout=120)
+    return _RUNS[name].returncode, out, err
+
+
+def test_port_imports_no_jax():
+    rc, out, err = _result("all")
+    assert rc == 0, err
+    assert "LEAKED []" in out, out
 
 
 VECTOR_FE = ("fem.fe_vector", "fem.fe_vector_ho", "fem.fe_vector_simplex", "ops.vecfe",
@@ -53,19 +92,20 @@ VECTOR_FE = ("fem.fe_vector", "fem.fe_vector_ho", "fem.fe_vector_simplex", "ops.
 def test_vector_fe_modules_import_no_jax():
     """The vector-FE slice's modules are among those the walk reaches, and
     importing them alone leaves JAX out too."""
-    probe = ("import importlib, pkgutil, sys\n"
-             "import cardiac_ablation_ecm2_tpu_torch as pkg\n"
-             "names = {m.name for m in pkgutil.walk_packages(pkg.__path__, "
-             "pkg.__name__ + '.')}\n"
-             f"mods = ['cardiac_ablation_ecm2_tpu_torch.' + m for m in {VECTOR_FE!r}]\n"
-             "assert set(mods) <= names, set(mods) - names\n"
-             "for m in mods:\n"
-             "    importlib.import_module(m)\n"
-             "print('LEAKED', sorted(m for m in sys.modules if m == 'jax' or "
-             "m.startswith(('jax.', 'jaxlib', 'cardiac_ablation_ecm2_tpu.'))))\n")
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    out = subprocess.run([sys.executable, "-c", probe], cwd=root,
-                         env=dict(os.environ, PYTHONPATH=root),
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert "LEAKED []" in out.stdout, out.stdout
+    rc, out, err = _result("vector_fe")
+    assert rc == 0, err
+    assert "LEAKED []" in out, out
+
+
+SLICE_16 = ("mesh.submesh", "mesh.trim", "mesh.particles", "ops.linearform",
+            "parallel.psubmesh", "parallel.pointeval", "examples.multidomain_heat",
+            "fem.geometry", "fem.basis", "fem.fespace", "fem.pyramid2", "fem.pyramid3",
+            "fem.pyramid_p", "fem.mixed", "mesh.mesh")
+
+
+def test_multidomain_and_prism_pyramid_modules_import_no_jax():
+    """The multi-domain and prism/pyramid modules are among those the walk
+    reaches, and importing them alone leaves JAX out too."""
+    rc, out, err = _result("slice_16")
+    assert rc == 0, err
+    assert "LEAKED []" in out, out

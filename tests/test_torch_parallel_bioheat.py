@@ -16,6 +16,7 @@ every stage solve to the port's serial ``BioheatOperator`` in T form (JAX's
 sharded step reports none).
 """
 
+import functools
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -142,6 +143,7 @@ def _jax_run(name, kind, precond, solver, steps, ndev):
     return sim.gather(T)
 
 
+@functools.lru_cache(maxsize=None)
 def _serial_counts(kind, solver, steps):
     """The port's serial T-form operator's CG count of every stage solve."""
     fes = FESpace(_mesh("torch", kind), 2)
@@ -155,22 +157,8 @@ def _serial_counts(kind, solver, steps):
     return op.cg_iterations
 
 
-@pytest.mark.parametrize("name,kind,precond,solver,steps,ndev", [
-    (c[0], c[1], c[2], c[3], c[4], w) for c in CASES for w in c[5]])
-def test_sharded_step_matches_jax(ranks, name, kind, precond, solver, steps,
-                                  ndev):
-    Tj = _jax_run(name, kind, precond, solver, steps, ndev)
-    T, its = ranks[ndev].result()[0][name]
-    assert np.abs(T - Tj).max() <= 1e-10
-    assert T.max() > 37.5                        # the source heats
-    if precond == "jacobi":
-        assert its == _serial_counts(kind, solver, steps)
-    else:
-        assert len(its) == steps and min(its) > 0
-
-
-def test_lattice_matches_jax(ranks):
-    """The z-slab lattice over 2 ranks against JAX's at ndev 2."""
+def _jax_lattice():
+    """JAX's z-slab lattice run at ndev 2."""
     import jax.numpy as jnp
 
     from cardiac_ablation_ecm2_tpu.parallel import cartesian_bioheat as jcb
@@ -180,7 +168,39 @@ def test_lattice_matches_jax(ranks):
     T, t = sim.T0, 0.0
     for _ in range(3):
         T, t = sim.step(T, t, DT)
-    Tj = sim.gather(T)
+    return sim.gather(T)
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """JAX's sharded runs of every case and of the lattice, two at a time in
+    background threads from the first case on (JAX compiles outside the
+    GIL, so the cases' compiles overlap each other and the port's serial
+    counts)."""
+    with ThreadPoolExecutor(2) as pool:
+        runs = {(c[0], w): pool.submit(_jax_run, *c[:5], w) for c in CASES for w in c[5]}
+        runs["lattice"] = pool.submit(_jax_lattice)
+        yield runs
+
+
+@pytest.mark.parametrize("name,kind,precond,solver,steps,ndev", [
+    (c[0], c[1], c[2], c[3], c[4], w) for c in CASES for w in c[5]])
+def test_sharded_step_matches_jax(ranks, jax_runs, name, kind, precond, solver,
+                                  steps, ndev):
+    serial = _serial_counts(kind, solver, steps) if precond == "jacobi" else None
+    Tj = jax_runs[(name, ndev)].result()
+    T, its = ranks[ndev].result()[0][name]
+    assert np.abs(T - Tj).max() <= 1e-10
+    assert T.max() > 37.5                        # the source heats
+    if precond == "jacobi":
+        assert its == serial
+    else:
+        assert len(its) == steps and min(its) > 0
+
+
+def test_lattice_matches_jax(ranks, jax_runs):
+    """The z-slab lattice over 2 ranks against JAX's at ndev 2."""
+    Tj = jax_runs["lattice"].result()
     Tt, its = ranks[2].result()[0]["lattice"]
     assert Tt.shape == Tj.shape and np.abs(Tt - Tj).max() <= 1e-10
     assert Tt.max() > 37.05 and len(its) == 9

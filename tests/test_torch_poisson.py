@@ -44,6 +44,7 @@ from cardiac_ablation_ecm2_tpu_torch.ops import linearform as tlf
 from cardiac_ablation_ecm2_tpu_torch.ops.operators import form_linear_system
 from cardiac_ablation_ecm2_tpu_torch.utils.config import config as tcfg
 from cardiac_ablation_ecm2_tpu_torch.utils.config import configure as tconfigure
+from test_torch_newton import beside
 
 
 def kappa(x):
@@ -201,8 +202,9 @@ def test_entry_matches_graft_entry(dtype):
         tfn, targs = entry(device="cpu")
         assert targs[0].dtype == torch.float32 and targs[0].shape == jargs[0].shape
         assert [float(a) for a in targs[1:]] == [float(a) for a in jargs[1:]]
-        jT, jt = jfn(*jargs)
+        jax_run = beside(lambda: jfn(*jargs))
         tT, tt = tfn(*targs)
+        jT, jt = jax_run.result()
     finally:
         jconfigure(dtype=old[0])
         tconfigure(dtype=old[1])

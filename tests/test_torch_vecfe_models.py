@@ -112,10 +112,19 @@ def test_magnetic_diffusion_steps(monkeypatch):
     A0 = np.random.default_rng(3).standard_normal(top.M.ndof) * top.mask.numpy()
     jA, tA, t = jnp.asarray(A0), torch.as_tensor(A0), 0.0
     js, tsol = jode.select("sdirk33"), ode.select("sdirk33")
+    from test_torch_newton import beside
+
+    def jax_side(jA, t):
+        for _ in range(3):
+            jA, _ = js.step(jop, jA, jnp.asarray(t), jnp.asarray(0.05))
+            t += 0.05
+        return jA
+
+    jax_run = beside(lambda: jax_side(jA, t))
     for _ in range(3):
-        jA, _ = js.step(jop, jA, jnp.asarray(t), jnp.asarray(0.05))
         tA, _ = tsol.step(top, tA, t, 0.05)
         t += 0.05
+    jA = jax_run.result()
     assert top.cg_iterations == counts and len(counts) == 9
     close(jA, tA)
 
@@ -130,12 +139,14 @@ def test_maxwell_eigenvalues():
     from cardiac_ablation_ecm2_tpu.mesh import mesh as jmesh
 
     jm, tm = jmesh.make_cartesian_2d(4, 4), tmesh.make_cartesian_2d(4, 4)
+    from test_torch_newton import beside
+
     jnd, tnd = JNDHO(jm, 2), tho.NDSpaceHO(tm, 2)
-    jr = jme.maxwell_eigenvalues(jnd, JFESpace(jm, 2), k=3, iters=20)
+    jax_run = beside(lambda: jme.maxwell_eigenvalues(jnd, JFESpace(jm, 2), k=3, iters=20))
     X0 = jax.random.normal(jax.random.PRNGKey(0), (tnd.ndof, 3), dtype=jnp.float64)
     tr = maxwell_eigenvalues(tnd, FESpace(tm, 2), k=3, iters=20,
                              X0=torch.as_tensor(np.asarray(X0)), **F64)
-    close(jr.eigenvalues, tr.eigenvalues)
+    close(jax_run.result().eigenvalues, tr.eigenvalues)
     # the lowest PEC modes of the unit square: π², π², 2π²
     assert np.allclose(tr.eigenvalues, np.pi ** 2 * np.array([1, 1, 2]), rtol=2e-2)
 
@@ -169,20 +180,27 @@ def test_hybridization(case):
     from cardiac_ablation_ecm2_tpu.ops import hybridization as jh
     from cardiac_ablation_ecm2_tpu.ops import vecfe as jo
 
+    from test_torch_newton import beside
+
     jsp, tsp, nq1d = _hyb_spaces(case)
-    jop = jo.build_rt_operator(jsp, mass_coeff=1.0, divdiv_coeff=0.8, nq1d=nq1d)
-    top = to.build_rt_operator(tsp, mass_coeff=1.0, divdiv_coeff=0.8, nq1d=nq1d, **F64)
     kw = {}
     if case == "tri-rt2":        # nonzero essential normal-trace values
         ess = tsp.essential_dofs(None)
         bc = np.random.default_rng(2).standard_normal(tsp.ndof)
         kw = dict(ess=ess, bc_vals=bc)
-    jhy = jh.hybridize_hdiv(jsp, jop, **kw)
+
+    def jax_side():
+        jop = jo.build_rt_operator(jsp, mass_coeff=1.0, divdiv_coeff=0.8, nq1d=nq1d)
+        jhy = jh.hybridize_hdiv(jsp, jop, **kw)
+        return (jhy,) + tuple(jhy.solve(_f, rel_tol=1e-13))
+
+    jax_run = beside(jax_side)
+    top = to.build_rt_operator(tsp, mass_coeff=1.0, divdiv_coeff=0.8, nq1d=nq1d, **F64)
     thy = hybridize_hdiv(tsp, top, **kw)
+    tu, tlam, tinfo = thy.solve(_f, rel_tol=1e-13)
+    jhy, ju, jlam, jinfo = jax_run.result()
     assert thy.nlam == jhy.nlam
     assert np.array_equal(thy.lam.gm.numpy(), np.asarray(jhy.lam_elem))
-    ju, jlam, jinfo = jhy.solve(_f, rel_tol=1e-13)
-    tu, tlam, tinfo = thy.solve(_f, rel_tol=1e-13)
     assert tinfo.converged and tinfo.iterations == int(jinfo.iterations)
     close(ju, tu)
     close(jlam, tlam)
