@@ -795,23 +795,24 @@ def phase_kernel_random(kc):
                    least=nout * 4 + (nsrc + 18) * 8 + (nout + nsrc + 17) * es)
 
 
-def check_restriction(kc, r, what, tag, seed, timed=False):
+def check_restriction(kc, r, what, tag, seed, timed=False,
+                      dtypes=(torch.float32, torch.float64)):
     """Every kernel and layout of the restriction ``r`` (gather-sum and
     transposing gather L→E, segment-sum E→L from either layout) bitwise
-    against its plain version on seeded random inputs, in float32 and
-    float64; with ``timed``, the float32 calls are timed against their
-    plain versions and library calls."""
+    against its plain version on seeded random inputs, in each of
+    ``dtypes``; with ``timed``, the calls in the first of them are timed
+    against their plain versions and library calls."""
     from cardiac_ablation_ecm2_tpu_torch.ops import block_gather as bg
 
     J = int((r.offsets[1:] - r.offsets[:-1]).max())
     gen = torch.Generator(device=kc.dev).manual_seed(seed)
     g, gT = r.g[0].long(), r.gm.T.reshape(-1).long()
-    for dtype in (torch.float32, torch.float64):
+    for dtype in dtypes:
         dt = str(dtype)[6:]
         u = torch.randn(r.ndof, generator=gen, device=kc.dev, dtype=dtype)
         ue = torch.randn(r.ne * r.nd, generator=gen, device=kc.dev, dtype=dtype)
         least, old = restriction_bytes(r.ne, r.nd, r.ndof, u.element_size(), J)
-        t = timed and dtype == torch.float32
+        t = timed and dtype == dtypes[0]
         lte = dict(least=least, old=least) if t else {}
         etl = dict(least=least, old=old) if t else {}
         kc.compare("gather_sum", f"{what}L->E (ne,nd) {dt}", bg.gather_sum,
@@ -2004,19 +2005,20 @@ def phase_poisson(kc, dev, mesh, fes):
     return total, (fes, u_ref, residual, its)
 
 
-def phase_heat(kc, dev, n=100, built=None):
-    """[14] ex16 nonlinear heat: the n³ unit cube (80³, cut from 100³),
-    order 2, float32, SDIRK33; after its launches are read, the
+def phase_heat(kc, dev, built):
+    """[14] ex16 nonlinear heat: the EX16_N³ unit cube (80³, cut from
+    100³), order 2, float32, SDIRK33; after its launches are read, the
     restriction's kernels and the fused diffusion apply on the last
     state's κ(u) qdata are held to their plain versions.  ``built``: the
-    host set-up from ``ex16_host`` (else built here).  Returns the launch
-    counts of its run."""
+    host set-up from ``ex16_host``.  Returns the launch counts of its
+    run."""
     from cardiac_ablation_ecm2_tpu_torch.fem import gridfunction as gf
     from cardiac_ablation_ecm2_tpu_torch.linalg import ode
     from cardiac_ablation_ecm2_tpu_torch.models import heat
     from cardiac_ablation_ecm2_tpu_torch.ops import diffusion
 
-    mesh, fes, mesh_s, fes_s = built if built is not None else ex16_host()
+    n = EX16_N
+    mesh, fes, mesh_s, fes_s = built
     check((mesh.ne, fes.ndof) == (n ** 3, (2 * n + 1) ** 3), "[14] mesh size")
     start_main_path()
     t3 = time.perf_counter()
@@ -2897,21 +2899,21 @@ def pcg(A, b, M, dev, **kw):
     return x, info.iterations, info.converged, elapsed(t0, dev)
 
 
-def phase_hmg(kc, dev, built=None):
+def phase_hmg(kc, dev, built):
     """[25] −Δu = 1, u = 0 on the boundary, on the cardiac hex mesh n=32
     refined twice (16,305 → 130,440 → 1,043,520 hexes), order 2, float32:
     h-multigrid PCG with make_h_multigrid's smoothers (20 power steps,
     printed and flagged where it falls short), then with the levels
     rebuilt at 60 steps (held), and Jacobi-PCG; after each run's launches
     are read, every level's restriction bitwise, the fine one timed.
-    ``built``: the host set-up from ``hmg_host`` (else built here).
+    ``built``: the host set-up from ``hmg_host``.
     Returns the default run's launches, the spaces and the fine transfer
     for [27], and the fine restriction's round trip."""
     from cardiac_ablation_ecm2_tpu_torch.fem.build import restriction_for
     from cardiac_ablation_ecm2_tpu_torch.linalg.smoothers import jacobi
 
     t_phase = time.perf_counter()
-    meshes, spaces, mesh_s, space_s = built if built is not None else hmg_host()
+    meshes, spaces, mesh_s, space_s = built
     fes = spaces[-1]
     check(tuple(m.ne for m in meshes) == (16_305, 130_440, 1_043_520),
           "[25] the refined hierarchy's sizes")
@@ -4873,7 +4875,7 @@ def ex3_driver_lines(proc, what):
     return out.strip().splitlines()
 
 
-def phase_ex3(kc, dev, built=None):
+def phase_ex3(kc, dev, built):
     """[38] ex3 with AMS on the 2³ → 128³ hierarchy; returns the launches of
     the AMS and Jacobi solves and the kernels line's ND-map numbers.  The
     ex3 driver's runs go on beside the phase's own work (the CPU one from the
@@ -4888,14 +4890,14 @@ def phase_ex3(kc, dev, built=None):
                 p.wait()
 
 
-def ex3_checks(kc, dev, drivers, built=None):
+def ex3_checks(kc, dev, drivers, built):
     """[38]'s body; ``drivers`` holds the ex3 driver's CPU run and gets its card
-    run; ``built``: the host set-up from ``ex3_host`` (else built here)."""
+    run; ``built``: the host set-up from ``ex3_host``."""
     from cardiac_ablation_ecm2_tpu_torch.fem.build import restriction_for
     from cardiac_ablation_ecm2_tpu_torch.fem.fe_vector import NDSpace
 
     t_phase = time.perf_counter()
-    meshes, spaces, mesh_s, space_s = built if built is not None else ex3_host()
+    meshes, spaces, mesh_s, space_s = built
     torch.cuda.reset_peak_memory_stats()
     ledger = LaunchLedger()
     r = ex3_ams(meshes, dev, torch.float32, EX3_REL_TOL, EX3_JACOBI_CAP, ledger,
@@ -5837,10 +5839,12 @@ MD_DT = 0.05
 #: (parent hexes, dofs), (catheter hexes, dofs), (tissue hexes, dofs) at MD_N
 MD_SIZES = ((884_736, 7_189_057), (221_184, 1_815_937), (663_552, 5_447_232))
 #: [46]'s driver run, card against CPU; its CG counts (rel_tol 1e-10)
-#: within MD_COUNT_TOL of the CPU's
+#: within MD_COUNT_TOL of the CPU's; the CPU run again at these torch
+#: thread counts, whose counts bracket the card's
 MD_SMALL_N = 12
 MD_SMALL_STEPS = 3
 MD_COUNT_TOL = 1
+MD_SPREAD_THREADS = (1, 2, 4)
 #: [46]'s order-2 Poisson solves: ≥ 200k elements (float64: in float32
 #: the Jacobi-PCG's true residual stalls at 5.6e-4 on the prisms), and the
 #: small card-vs-CPU meshes
@@ -5884,8 +5888,10 @@ def md_counted(ledger, run):
 
 def phase_md_main(kc, dev, prob, host_s):
     """[45] the multidomain heat driver at MD_N: returns (the launches of
-    its MD_STEPS steps, the kernels line's take_flat numbers)."""
+    its MD_STEPS steps, the kernels line's take_flat numbers, the
+    subdomains' restriction timings by "<subdomain> <direction>")."""
     from cardiac_ablation_ecm2_tpu_torch.examples.multidomain_heat import Coupled
+    from cardiac_ablation_ecm2_tpu_torch.fem.build import restriction_for
     from cardiac_ablation_ecm2_tpu_torch.ops import gather_probes as gp
 
     t_phase = time.perf_counter()
@@ -5957,6 +5963,17 @@ def phase_md_main(kc, dev, prob, host_s):
     check(all(launches[k] > 0 for k in ("gather_sum", "segment_sum", "take_flat")),
           "[45] the path launched gather_sum, segment_sum and take_flat")
 
+    # the two subdomains' restrictions, which the steps' applies launched,
+    # at this shape and dtype: every kernel and layout bitwise its plain
+    # version, timed
+    md_times = {}
+    for i, (name, fes) in enumerate((("tissue", prob.tfes), ("catheter", prob.cfes))):
+        r = restriction_for(fes, dev)
+        check_restriction(kc, r, f"md {name} ", "[45]", seed=450 + i, timed=True,
+                          dtypes=(torch.float64,))
+        for k in ("L->E (ne,nd)", "L->E (nd,ne)", "E->L (ne,nd)", "E->L (nd,ne)"):
+            md_times[f"{name} {k}"] = kc.times[f"md {name} {k} float64"]
+
     # the transfer maps at this shape: to_sub (take_flat) bitwise its plain
     # version and timed, to_parent bitwise plain indexing
     idx = run.tm_t.idx
@@ -5977,7 +5994,7 @@ def phase_md_main(kc, dev, prob, host_s):
                           md_take_flat_plain_ms=numbers["plain_ms"],
                           md_take_flat_bound_ms=numbers["bound_ms"],
                           md_take_flat_library_ms=numbers["library_ms"],
-                          md_take_flat_launches=launches["take_flat"])
+                          md_take_flat_launches=launches["take_flat"]), md_times
 
 
 def _md_driver(argv):
@@ -5991,6 +6008,22 @@ def _md_driver(argv):
     with contextlib.redirect_stdout(out):
         _, Tc, Tt = multidomain_heat.main(argv)
     return out.getvalue().strip().splitlines(), Tc.cpu(), Tt.cpu()
+
+
+def md_cpu_spread(argv):
+    """[46]'s second witness for MD_COUNT_TOL: the driver's CPU run again
+    at torch thread counts MD_SPREAD_THREADS, whose reductions sum in other
+    orders; returns {threads: tissue CG counts}."""
+    n0 = torch.get_num_threads()
+    runs = {}
+    try:
+        for t in MD_SPREAD_THREADS:
+            torch.set_num_threads(t)
+            lines = _md_driver(argv + ["--cpu"])[0]
+            runs[t] = [int(line.split()[-1]) for line in lines[:-1]]
+    finally:
+        torch.set_num_threads(n0)
+    return runs
 
 
 def two_material_3d(n):
@@ -6100,6 +6133,15 @@ def phase_md_rest(kc, dev, spaces):
           and all(abs(a - b) <= MD_COUNT_TOL for a, b in zip(counts, counts_h)),
           f"[46] the driver: the card's lines equal the CPU's but for CG counts within "
           f"{MD_COUNT_TOL}, the fields within 1e-10·max")
+    if counts != counts_h:
+        spread = md_cpu_spread(argv)
+        spread[torch.get_num_threads()] = counts_h
+        print(f"[46] the CPU run's tissue CG at torch threads "
+              + ", ".join(f"{t}: {c}" for t, c in sorted(spread.items())))
+        check(all(min(c[k] for c in spread.values()) <= a <= max(c[k] for c in spread.values())
+                  for k, a in enumerate(counts)),
+              "[46] the card's counts lie within the CPU's over its thread counts: "
+              "the summation order moves them")
 
     # trim, particles and point sources at the JAX tests' sizes
     m = tmesh.make_cartesian_2d(4, 4)
@@ -6334,8 +6376,6 @@ def ex16_host():
     return mesh, fes, t1 - t0, time.perf_counter() - t1
 
 
-
-
 def main():
     from cardiac_ablation_ecm2_tpu_torch.mesh.cardiac import make_cardiac_hex_mesh
     from cardiac_ablation_ecm2_tpu_torch.utils.config import configure
@@ -6412,7 +6452,7 @@ def main():
     del hex_mesh, poisson_ref
     for cache in ("_restrictions", "_geom_factors", "_bdr_restrictions", "_bdr_geom"):
         hex_fes.__dict__.pop(cache, None)
-    phase_heat(kc, dev, n=EX16_N, built=worker_result(
+    phase_heat(kc, dev, worker_result(
         "[14]", "the mesh and space", *ex16_work))
     phase_entry(dev)
     bp_launches, bp_numbers = phase_bp(kc, dev)
@@ -6453,7 +6493,7 @@ def main():
     md_prob, md_host_s, md_spaces = worker_result("[45]", "the host tables", md_pool,
                                                   md_built)
     configure(quad_extra=1)          # the driver's setting: nq1d = p + 2
-    md_launch, md_numbers = phase_md_main(kc, dev, md_prob, md_host_s)
+    md_launch, md_numbers, md_times = phase_md_main(kc, dev, md_prob, md_host_s)
     del md_prob
     md_rest_launch = phase_md_rest(kc, dev, md_spaces)
     del md_spaces
@@ -6549,6 +6589,14 @@ def main():
     # the multi-domain slice: [45]'s tissue to_sub (take_flat, one gather_sum
     # launch) at its shape, float64, and the launches of [46]'s card runs
     restriction[0].update(md_numbers, md_rest_take_flat_launches=md_rest_launch["take_flat"])
+    # [45]'s tissue (663,552 x 27) and catheter (221,184 x 27) restrictions,
+    # float64, in the layouts the steps' applies launch
+    md_rows = {"gather_sum": "L->E (ne,nd)", "gather_transpose": "L->E (nd,ne)",
+               "segment_sum": "E->L (nd,ne)"}
+    for entry in restriction:
+        for sub in ("tissue", "catheter"):
+            entry.update({f"md_{sub}_{f}": md_times[f"{sub} {md_rows[entry['name']]}"][f]
+                          for f in ("ms", "plain_ms", "bound_ms", "library_ms")})
     # the DG face route's float32 numbers at [33]'s interior-face read
     # (324,864 rows of 64) and slot list (49.5M slots into 7,077,888 dofs)
     restriction[2].update({f"dg_{f}": dg_numbers["segment_sum"][f]

@@ -28,7 +28,7 @@ from cardiac_ablation_ecm2_tpu_torch.linalg import smoothers
 from cardiac_ablation_ecm2_tpu_torch.linalg.solvers import cg
 from cardiac_ablation_ecm2_tpu_torch.mesh import mesh as tmesh
 from cardiac_ablation_ecm2_tpu_torch.ops import vecfe as to
-from test_torch_newton import beside
+from torch_threads import beside
 
 F64 = dict(dtype="float64", device="cpu")
 

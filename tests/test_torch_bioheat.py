@@ -164,28 +164,3 @@ def test_three_steps_match_jax(kind, transposed_apply, fused_setup):
     assert np.abs(jT).max() > 0.1
 
 
-@pytest.mark.parametrize("kind", ["cardiac", "cartesian"])
-def test_from_jax_arrays_step_matches_jax(kind):
-    _, tm = _meshes(kind)
-    jop = _jax_op(kind)
-    jfes = jop.fes
-    arrays = {k: np.asarray(v) for k, v in jbio.big_arrays(jop).items()
-              if k != "restr"}
-    arrays["gather_map"] = np.asarray(jfes.gather_map)
-    params = {k: v for k, v in PARAMS.items()
-              if k in ("rel_tol", "max_iter", "dtype", "theta_form")}
-    top = tbio.from_jax_arrays(FESpace(tm, 2), arrays, device="cpu", **params)
-    theta = np.random.default_rng(2).uniform(0.0, 0.5, jfes.ndof)
-    theta *= np.asarray(jop.ess_mask)
-    jT, jit = _run_jax(jop, theta, 1)
-    tT, tit = _run_port(top, theta, 1)
-    assert tit == jit
-    close(tT, jT, 1e-10)
-
-
-def test_from_jax_arrays_rejects_other_numbering():
-    tm = make_cartesian_3d(2, 2, 2)
-    fes = FESpace(tm, 2)
-    arrays = {"gather_map": fes.gather_map[::-1].copy()}
-    with pytest.raises(ValueError):
-        tbio.from_jax_arrays(fes, arrays, device="cpu")

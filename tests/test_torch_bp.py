@@ -97,7 +97,7 @@ def _jax_solve(fes, kind, ell):
 
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_bp_run_equals_root_script(mode, capsys):
-    from test_torch_newton import beside
+    from torch_threads import beside
 
     kw = MODES[mode]
 

@@ -239,7 +239,7 @@ def test_elasticity_cantilever_equals_jax():
     """ex2's beam cut to 6×2×2, order 2: fixed x = 0 (5), load on x = 3 (3)."""
     kw = dict(order=2, lam=1.0, mu=1.0, fixed_bdr=(5,), force_bdr=(3,),
               rel_tol=1e-10, dtype="float64")
-    from test_torch_newton import beside
+    from torch_threads import beside
 
     jax_run = beside(lambda: jelasticity.solve(jhex(6, 2, 2, sx=3.0), **kw))
     tr = telasticity.solve(thex(6, 2, 2, sx=3.0), device="cpu", **kw)

@@ -1,22 +1,16 @@
-"""The port's energy-based nonlinear models against the JAX package,
-float64 on the CPU:
-
-* ``models/hyperelastic.py``: ``neo_hookean_W`` at random deformation
-  gradients; on a 3D beam at order 2 the energy, the residual
-  (``torch.func.grad`` through the restriction's autograd Functions
-  against ``jax.grad``) and the tangent apply (``torch.func.jvp`` of the
-  residual, and the once-built ``HyperelasticProblem.tangent`` that
-  ``solve`` uses, against ``jax.linearize``) on the same vectors, to
-  1e-10; the
-  Newton solve on JAX's 2D beam with JAX's tiny load and on the 3D beam:
-  equal Newton iterations and CG counts in every step, u to 1e-10; the
-  small-strain solve within 5e-3 of the port's linear elasticity (JAX's
-  ``test_small_strain_matches_linear_elasticity``);
-* ``models/incompressible.py``: JAX's 2D shear and 3D uniaxial stretch at
-  smaller sizes (GMRES Newton): equal Newton and GMRES counts, x to 1e-10,
-  the volume kept;
-* ``models/eikonal.py``: the p continuation on a 6×6 order-2 square
-  (p = 2, 3, 4): equal Newton and CG counts at every p, u to 1e-10.
+"""The port's hyperelastic model against the JAX package, float64 on the
+CPU (``models/hyperelastic.py``): ``neo_hookean_W`` at random
+deformation gradients; on a 3D beam at order 2 the energy, the residual
+(``torch.func.grad`` through the restriction's autograd Functions against
+``jax.grad``) and the tangent apply (``torch.func.jvp`` of the residual,
+and the once-built ``HyperelasticProblem.tangent`` that ``solve`` uses,
+against ``jax.linearize``) on the same vectors, to 1e-10; the Newton solve
+on JAX's 2D beam with JAX's tiny load and on the 3D beam: equal Newton
+iterations and CG counts in every step, u to 1e-10; the small-strain solve
+within 5e-3 of the port's linear elasticity (JAX's
+``test_small_strain_matches_linear_elasticity``).  The incompressible
+model is in ``test_torch_incompressible.py``, the eikonal one in
+``test_torch_eikonal.py``.
 
 The loads are small enough that full Newton steps lower ‖F‖: JAX's line
 search keeps only steps that lower it, so at larger loads on a slender
@@ -37,17 +31,14 @@ import jax.numpy as jnp
 from cardiac_ablation_ecm2_tpu.fem import FESpace as JFESpace
 from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d as jquad
 from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d as jhex
-from cardiac_ablation_ecm2_tpu.models import eikonal as jeik
 from cardiac_ablation_ecm2_tpu.models import hyperelastic as jhyp
-from cardiac_ablation_ecm2_tpu.models import incompressible as jinc
 from cardiac_ablation_ecm2_tpu_torch.fem.fespace import FESpace
 from cardiac_ablation_ecm2_tpu_torch.linalg.newton import jacobian_action
 from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_2d, make_cartesian_3d
 from cardiac_ablation_ecm2_tpu_torch.models import elasticity as telasticity
-from cardiac_ablation_ecm2_tpu_torch.models import eikonal as teik
 from cardiac_ablation_ecm2_tpu_torch.models import hyperelastic as thyp
-from cardiac_ablation_ecm2_tpu_torch.models import incompressible as tinc
-from test_torch_newton import beside, jax_newton
+from test_torch_newton import jax_newton
+from torch_threads import beside
 
 RTOL = 1e-10
 
@@ -148,72 +139,3 @@ def test_small_strain_matches_linear_elasticity(beams):
     scale = np.abs(d_lin).max()
     assert scale > 1e-7
     assert np.abs(tp.displacement(u) - d_lin).max() / scale < 5e-3
-
-
-INCOMPRESSIBLE = {
-    # JAX's 2D shear, at 2×2 and a shear of 0.1 (its 3×3 case at 0.3 runs
-    # GMRES to its 2,000-iteration cap in two Newton steps)
-    "shear 2d": ((2, 2), [(0, [1], 0.0), (1, [1], 0.0), (0, [3], 0.1), (1, [3], 0.0)],
-                 1e-9, 1e-9),
-    # JAX's uniaxial stretch, on one hex and a stretch of 1.2; at rel_tol
-    # 1e-9 the fourth Newton step's GMRES starts from a residual at the
-    # round-off floor (3e-15) and its count differs (48 against 54), as it
-    # does at 1e-7; at 1e-5 Newton stops after three steps, with the volume
-    # kept to 3.4e-8
-    "uniaxial 3d": ((1, 1, 1), [(0, [5], 0.0), (0, [3], 0.2), (1, [2], 0.0),
-                                (2, [1], 0.0)], 1e-5, 1e-7),
-}
-
-
-@pytest.mark.parametrize("case", sorted(INCOMPRESSIBLE))
-def test_incompressible(case):
-    from cardiac_ablation_ecm2_tpu_torch.fem.geom_factors import determinant
-
-    shape, ess, rel_tol, vol_tol = INCOMPRESSIBLE[case]
-    jm, tm = ((jquad(*shape), make_cartesian_2d(*shape)) if len(shape) == 2
-              else (jhex(*shape), make_cartesian_3d(*shape)))
-    jp = jinc.IncompressibleHyperelastic(jm, order=2, mu=1.0, ess=ess)
-    tp = tinc.IncompressibleHyperelastic(tm, order=2, mu=1.0, ess=ess, device="cpu")
-
-    # JAX's solve and its loop written out, each in a thread of its own
-    solve_run = beside(lambda: jp.solve(rel_tol=rel_tol))
-    newton_run = beside(lambda: jax_newton(
-        jp.residual, jp.vals, rel_tol=rel_tol, max_iter=30, linear_max_iter=2000,
-        linear_solver="gmres"))
-    xt, it = tp.solve(rel_tol=rel_tol)
-    (xj, ij), (_, kj, its) = solve_run.result(), newton_run.result()
-    assert kj == int(ij.iterations)
-    assert it.converged and it.iterations == kj and list(it.linear_iterations) == its
-    close(xt, xj)
-    F = tp._grad_u(xt[: tp.nu]) + torch.eye(tp.dim, dtype=xt.dtype)
-    assert abs(float(torch.sum(tp.gf.wdet * (determinant(F) - 1.0)))) < vol_tol
-    assert np.allclose(tp.deformation_stats(xt), jp.deformation_stats(xj), rtol=1e-10)
-
-
-def test_eikonal():
-    sched = (2.0, 3.0, 4.0)
-    js = jeik.EikonalSolver(jquad(6, 6), order=2, p_schedule=sched)
-    ts = teik.EikonalSolver(make_cartesian_2d(6, 6), order=2, p_schedule=sched,
-                            device="cpu")
-    m = js.mask
-
-    def res(v, p):
-        return jax.grad(lambda w: js.energy(w, p))(v) * m + v * (1 - m)
-
-    def jax_steps():
-        """JAX's continuation with every Newton step's CG count visible."""
-        u, steps = jnp.zeros(js.fes.ndof_scalar), []
-        for p in sched:
-            u, k, its = jax_newton(res, u, rel_tol=js.rel_tol, max_iter=40,
-                                   line_search=8, args=(jnp.float64(p),))
-            steps.append((k, its))
-        return steps
-
-    solve_run, steps_run = beside(js.solve), beside(jax_steps)
-    ut, it = ts.solve()
-    (uj, ij), steps = solve_run.result(), steps_run.result()
-    assert len(ts.infos) == len(steps)
-    for p, info, want in zip(sched, ts.infos, steps):
-        assert (info.iterations, list(info.linear_iterations)) == want, (p, info)
-    assert it.converged and it.iterations == int(ij.iterations)
-    close(ut, uj)

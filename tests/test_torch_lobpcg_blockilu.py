@@ -30,7 +30,7 @@ from cardiac_ablation_ecm2_tpu_torch.linalg.blockilu import block_ilu0
 from cardiac_ablation_ecm2_tpu_torch.linalg.lobpcg import lobpcg
 from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_2d
 from cardiac_ablation_ecm2_tpu_torch.ops.bilinearform import BilinearForm
-from test_torch_newton import beside
+from torch_threads import beside
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -16,8 +16,6 @@ against the JAX package, float64 on the CPU:
   ``SIASolver`` orders 1, 2, 4 on the oscillator of JAX's tests, to
   1e-13."""
 
-from concurrent.futures import ThreadPoolExecutor
-
 import numpy as np
 import pytest
 import torch
@@ -46,6 +44,7 @@ from cardiac_ablation_ecm2_tpu_torch.linalg import ode2 as tode2
 from cardiac_ablation_ecm2_tpu_torch.mesh.mesh import make_cartesian_2d
 from cardiac_ablation_ecm2_tpu_torch.ops import diffusion as tdmod
 from cardiac_ablation_ecm2_tpu_torch.ops.linearform import domain_lf
+from torch_threads import beside
 
 RTOL = 1e-10
 
@@ -56,16 +55,6 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def beside(fn):
-    """``fn`` started in a background thread (its future): JAX compiles and
-    runs outside the GIL, so the port's side of a test runs beside it.
-    Shared by the test files that hold the port to a slow JAX reference."""
-    pool = ThreadPoolExecutor(1)
-    fut = pool.submit(fn)
-    pool.shutdown(wait=False)
-    return fut
 
 
 def close(a, b, rtol=RTOL):

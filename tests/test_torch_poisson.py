@@ -44,7 +44,7 @@ from cardiac_ablation_ecm2_tpu_torch.ops import linearform as tlf
 from cardiac_ablation_ecm2_tpu_torch.ops.operators import form_linear_system
 from cardiac_ablation_ecm2_tpu_torch.utils.config import config as tcfg
 from cardiac_ablation_ecm2_tpu_torch.utils.config import configure as tconfigure
-from test_torch_newton import beside
+from torch_threads import beside
 
 
 def kappa(x):

@@ -112,7 +112,7 @@ def test_magnetic_diffusion_steps(monkeypatch):
     A0 = np.random.default_rng(3).standard_normal(top.M.ndof) * top.mask.numpy()
     jA, tA, t = jnp.asarray(A0), torch.as_tensor(A0), 0.0
     js, tsol = jode.select("sdirk33"), ode.select("sdirk33")
-    from test_torch_newton import beside
+    from torch_threads import beside
 
     def jax_side(jA, t):
         for _ in range(3):
@@ -139,7 +139,7 @@ def test_maxwell_eigenvalues():
     from cardiac_ablation_ecm2_tpu.mesh import mesh as jmesh
 
     jm, tm = jmesh.make_cartesian_2d(4, 4), tmesh.make_cartesian_2d(4, 4)
-    from test_torch_newton import beside
+    from torch_threads import beside
 
     jnd, tnd = JNDHO(jm, 2), tho.NDSpaceHO(tm, 2)
     jax_run = beside(lambda: jme.maxwell_eigenvalues(jnd, JFESpace(jm, 2), k=3, iters=20))
@@ -180,7 +180,7 @@ def test_hybridization(case):
     from cardiac_ablation_ecm2_tpu.ops import hybridization as jh
     from cardiac_ablation_ecm2_tpu.ops import vecfe as jo
 
-    from test_torch_newton import beside
+    from torch_threads import beside
 
     jsp, tsp, nq1d = _hyb_spaces(case)
     kw = {}
